@@ -1,0 +1,343 @@
+"""End-to-end batched path optimization pipeline (port of
+``tpu_pathopt.pipeline``; reference: PathOptimizer::solve,
+path_optimizer.cpp:34-71):
+
+    raw points -> B-spline fit -> 1 m segmentation -> TENSION2 smoothing QP
+    -> DP corridor search -> post-smoothing QP -> 0.3 m resampling
+    -> ESDF collision bounds -> two-pass lateral path QP -> SlState path
+
+Every stage works on the whole scenario batch at once (the JAX package's
+``vmap`` written out as a leading batch axis). Stage failures follow the
+reference's abort semantics but are reported as flags on the result.
+
+:func:`solve_batch` runs on ``cuda`` unless the caller passes another
+device; with no GPU and no explicit device it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpu_pathopt_torch import bounds as bounds_mod
+from tpu_pathopt_torch import bspline, corridor, maps, refpath, splines
+from tpu_pathopt_torch.config import PlannerConfig
+from tpu_pathopt_torch.geometry import (constrain_angle, global_to_local,
+                                        normal_offset)
+from tpu_pathopt_torch.qp.admm import QPSettings
+from tpu_pathopt_torch.refpath import CorridorBounds
+from tpu_pathopt_torch.smoothing.post_smooth import post_smooth_batched
+from tpu_pathopt_torch.smoothing.segment import segment_raw_reference
+from tpu_pathopt_torch.smoothing.tension2 import tension2_smooth_batched
+from tpu_pathopt_torch.solver.assembly import assemble_path_qp
+from tpu_pathopt_torch.solver.path_solver import solve_path_qp_batched
+from tpu_pathopt_torch.torchutil import resolve_device, take, to_device, \
+    tree_map
+
+
+@dataclasses.dataclass
+class Scenario:
+    """Queries: raw reference points + start/target states, batch-leading
+    (a single query has no batch axis; see :func:`solve`)."""
+
+    raw_x: torch.Tensor         # (B, R) padded raw reference points
+    raw_y: torch.Tensor
+    n_raw: torch.Tensor         # (B,) int64
+    start_x: torch.Tensor       # (B,)
+    start_y: torch.Tensor
+    start_heading: torch.Tensor
+    start_k: torch.Tensor
+    target_x: torch.Tensor
+    target_y: torch.Tensor
+    target_heading: torch.Tensor
+
+
+@dataclasses.dataclass
+class PathResult:
+    """Optimized SlState paths (data_struct.hpp:28-32 + getOptimizedPath,
+    base_solver.cpp:263-288), batch-leading."""
+
+    x: torch.Tensor             # (B, N)
+    y: torch.Tensor
+    heading: torch.Tensor
+    l: torch.Tensor
+    d_heading: torch.Tensor
+    k: torch.Tensor
+    d_k: torch.Tensor
+    s: torch.Tensor
+    n_valid: torch.Tensor       # (B,) int64
+    ok: torch.Tensor            # (B,) bool: full-pipeline success
+    blocked: torch.Tensor       # horizon truncated at an obstacle
+    qp_iters: torch.Tensor      # total ADMM iterations (both passes)
+    ok_input: torch.Tensor      # >= 4 raw points
+    ok_smooth: torch.Tensor     # smoothing QP converged
+    ok_corridor: torch.Tensor   # vehicle near the reference
+    ok_post: torch.Tensor       # post-smoothing QP (>= 4 layers + converged)
+    ok_init: torch.Tensor       # initial heading error <= 75 deg
+    ok_qp: torch.Tensor         # both path-QP passes converged
+    horizon_truncated: torch.Tensor
+    bounds: CorridorBounds
+
+    @property
+    def mask(self):
+        n = self.x.shape[-1]
+        return torch.arange(n, device=self.x.device) < self.n_valid[..., None]
+
+
+def _refit_splines(x, y, n_valid, step=1.0):
+    """Cumulative-arc-length natural-spline refit of masked polylines."""
+    M = x.shape[-1]
+    seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
+    keep = torch.arange(M - 1, device=x.device) <= n_valid[:, None] - 2
+    seg = torch.where(keep, torch.clamp(seg, min=1e-6), step)
+    s = torch.cat([torch.zeros_like(seg[:, :1]), torch.cumsum(seg, -1)], -1)
+    xs, ys = splines.fit_xy(s, x, y, n_valid)
+    return xs, ys, take(s, n_valid - 1)
+
+
+# ------------------------------ pipeline stages ------------------------------
+
+def stage_prep(scs: Scenario, config: PlannerConfig):
+    """B-spline fit (reference_path_smoother.cpp:490-524) + 1 m
+    segmentation (:47-85)."""
+    ok_input = scs.n_raw >= 4
+    xb, yb, sb, nb = bspline.fit_and_sample(scs.raw_x, scs.raw_y, scs.n_raw,
+                                            config.bspline_samples)
+    return (ok_input,) + segment_raw_reference(xb, yb, sb, nb,
+                                               config.n_segment_points)
+
+
+def stage_smooth(gm: maps.GridMap, prep_out, config: PlannerConfig,
+                 settings: QPSettings, stats: dict | None = None):
+    """TENSION2 smoothing QP (tension_smoother_2.cpp:20-72)."""
+    if config.smoothing_method != "TENSION2":
+        raise NotImplementedError(
+            f"smoothing_method={config.smoothing_method!r} is not ported yet")
+    ok_input, xg, yg, sg, ang, kg, n_seg = prep_out
+    return tension2_smooth_batched(xg, yg, ang, kg, sg, n_seg, config,
+                                   settings, stats=stats)
+
+
+def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
+                   config: PlannerConfig):
+    """Smoothed-spline refit + DP corridor search (graphSearchDp,
+    :142-295), on a spline extended 3 m past the fit
+    (tension_smoother.cpp:40-41)."""
+    if config.corridor_method != "DP":
+        raise NotImplementedError(
+            f"corridor_method={config.corridor_method!r} is not ported yet")
+    x2, y2, s2, n2, ok_smooth = smooth_out
+    xs2, ys2, s2_max = _refit_splines(x2, y2, n2)
+    lat = corridor.prepare_lattice(gm, xs2, ys2, s2_max + 3.0, scs.start_x,
+                                   scs.start_y, scs.start_heading, config)
+    costs, parents, alives = corridor.dp_forward_batched(lat, config)
+    cor = corridor.finish_corridor(gm, lat, costs, parents, alives, config)
+    return xs2, ys2, cor
+
+
+def stage_post_smooth(cor, config: PlannerConfig, settings: QPSettings,
+                      stats: dict | None = None):
+    """Post-smoothing QP (postSmooth, :526-580)."""
+    l_post, post_ok, conv_post = post_smooth_batched(
+        cor.layers_s, cor.lower, cor.upper, cor.vehicle_l, cor.n_layers,
+        config, settings, stats=stats)
+    return l_post, post_ok & conv_post
+
+
+def stage_geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+                   config: PlannerConfig):
+    """Re-projection, init state, trim, resample, collision bounds
+    (processReferencePath, path_optimizer.cpp:105-122)."""
+    cfg = config
+    ref_dir = splines.heading(xs2, ys2, cor.layers_s)
+    x3, y3 = normal_offset(splines.evaluate(xs2, cor.layers_s),
+                           splines.evaluate(ys2, cor.layers_s), ref_dir,
+                           l_post)
+    xs3, ys3, length3 = _refit_splines(x3, y3, cor.n_layers)
+
+    # Init state (processInitState, path_optimizer.cpp:73-85).
+    zero = torch.zeros_like(length3)
+    ix = splines.evaluate(xs3, zero)
+    iy = splines.evaluate(ys3, zero)
+    ih = splines.heading(xs3, ys3, zero)
+    _, local_y, _ = global_to_local(scs.start_x, scs.start_y,
+                                    scs.start_heading, ix, iy)
+    min_dist = torch.hypot(ix - scs.start_x, iy - scs.start_y)
+    init_offset = torch.where(local_y < 0.0, min_dist, -min_dist)
+    init_heading_error = constrain_angle(scs.start_heading - ih)
+    ok_init = torch.abs(init_heading_error) <= 75.0 * torch.pi / 180.0
+
+    # Trim to the target projection (setReferencePathLength, :87-103).
+    ex = splines.evaluate(xs3, length3)
+    ey = splines.evaluate(ys3, length3)
+    eh = splines.heading(xs3, ys3, length3)
+    local_tx, _, _ = global_to_local(ex, ey, eh, scs.target_x, scs.target_y)
+    proj_s = splines.project(xs3, ys3, scs.target_x, scs.target_y, length3,
+                             iters=cfg.newton_iters)
+    length3 = torch.where(local_tx > 0.0, length3, proj_s)
+
+    # Resample at output spacing (buildReferenceFromSpline).
+    ref = refpath.build_reference_from_spline(xs3, ys3, length3,
+                                              cfg.n_knots, cfg)
+    # Collision bounds + blocked truncation (updateBoundsImproved).
+    cb = bounds_mod.update_bounds(gm, xs3, ys3, ref, cfg,
+                                  with_center=cfg.rough_constraints_far_away)
+    n_valid = torch.minimum(ref.n_valid, cb.n_valid)
+    ref = dataclasses.replace(ref, n_valid=n_valid)
+    return ref, cb, init_offset, init_heading_error, ok_init, n_valid
+
+
+def build_path_qp(scs: Scenario, geo_out, config: PlannerConfig, sol1=None):
+    """Assemble the batched path QP: pass 1 when ``sol1`` is None (zero
+    offset/heading error, the reference curvature), else pass 2 linearized
+    around pass 1's solution (optimizePath, path_optimizer.cpp:124-161)."""
+    ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
+    if sol1 is None:
+        zeros = torch.zeros_like(ref.k)
+        in_l, in_e, in_k = zeros, zeros, ref.k
+    else:
+        in_l, in_e, in_k = sol1.v[..., 0], sol1.v[..., 1], sol1.v[..., 2]
+    return assemble_path_qp(
+        ref_s=ref.s, ref_k=ref.k, ref_heading_last=take(ref.heading,
+                                                        n_valid - 1),
+        input_l=in_l, input_e=in_e, input_k=in_k,
+        front_lb=cb.front_lb, front_ub=cb.front_ub,
+        rear_lb=cb.rear_lb, rear_ub=cb.rear_ub,
+        init_offset=init_offset, init_heading_error=init_heading_error,
+        start_k=scs.start_k, target_heading=scs.target_heading,
+        blocked=cb.blocked, n_valid=n_valid, config=config,
+        center_lb=cb.center_lb, center_ub=cb.center_ub)
+
+
+def _permute(obj, order):
+    """Every batch-leading tensor of ``obj`` reordered by ``order``."""
+    return tree_map(lambda a: a[order] if a.dim() else a, obj)
+
+
+def stage_path_qp(scs: Scenario, geo_out, config: PlannerConfig,
+                  settings: QPSettings, stats: dict | None = None):
+    """Two-pass SQP path QP (optimizePath, path_optimizer.cpp:124-161).
+    Pass 2 warm-starts from pass 1's (v, y, rho). Both passes sort the
+    batch by expected difficulty with a stable sort and scatter the results
+    back, as the JAX package does; the sorts are pure permutations."""
+    ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
+    N = config.n_knots
+    qp1 = build_path_qp(scs, geo_out, config)
+    mask_k = torch.arange(N, device=n_valid.device) < n_valid[:, None]
+    width = torch.where(mask_k, torch.minimum(cb.front_ub - cb.front_lb,
+                                              cb.rear_ub - cb.rear_lb),
+                        torch.inf)
+    order1 = torch.argsort(-torch.amin(width, dim=-1), stable=True)
+    inv1 = torch.argsort(order1, stable=True)
+    rho0 = torch.full(n_valid.shape, settings.rho_bar_path,
+                      dtype=qp1.p_diag.dtype, device=n_valid.device)
+    sol1 = _permute(solve_path_qp_batched(_permute(qp1, order1),
+                                          settings=settings, rho0=rho0),
+                    inv1)
+    qp2 = build_path_qp(scs, geo_out, config, sol1=sol1)
+    order = torch.argsort(sol1.iters, stable=True)
+    inv = torch.argsort(order, stable=True)
+    sol2 = _permute(solve_path_qp_batched(
+        _permute(qp2, order), v0=sol1.v[order], y0_knot=sol1.y_knot[order],
+        y0_end=sol1.y_end[order], settings=settings,
+        rho0=sol1.rho_bar[order]), inv)
+    if stats is not None:
+        stats["qp1_rounds"] = sol1.rounds
+        stats["qp2_rounds"] = sol2.rounds
+    return sol1, sol2
+
+
+def stage_finalize(ref, sol2, n_valid, config: PlannerConfig):
+    """Output path (getOptimizedPath, base_solver.cpp:263-288)."""
+    N = config.n_knots
+    v = sol2.v
+    l, e, k, dk = v[..., 0], v[..., 1], v[..., 2], v[..., 3]
+    x_out, y_out = normal_offset(ref.x, ref.y, ref.heading, l)
+    heading_out = constrain_angle(ref.heading + e)
+    seg = torch.hypot(torch.diff(x_out, dim=-1), torch.diff(y_out, dim=-1))
+    keep = torch.arange(N - 1, device=v.device) <= n_valid[:, None] - 2
+    seg = torch.where(keep, seg, 0.0)
+    s_out = torch.cat([torch.zeros_like(seg[:, :1]), torch.cumsum(seg, -1)],
+                      -1)
+    return x_out, y_out, heading_out, l, e, k, dk, s_out
+
+
+# ------------------------------- entry points --------------------------------
+
+def run_to_geometry(gm: maps.GridMap, scs: Scenario, config: PlannerConfig,
+                    settings: QPSettings, stats: dict | None = None,
+                    hook=None):
+    """The stage chain up through ``stage_geometry``. Returns
+    ``(geo_out, (ok_input, ok_smooth, cor, ok_post))``. ``hook(name)``, if
+    given, is called before each stage."""
+    mark = hook or (lambda name: None)
+    mark("prep")
+    prep_out = stage_prep(scs, config)
+    mark("smooth")
+    smooth_out = stage_smooth(gm, prep_out, config, settings, stats)
+    mark("corridor")
+    xs2, ys2, cor = stage_corridor(gm, scs, smooth_out, config)
+    mark("post_smooth")
+    l_post, ok_post = stage_post_smooth(cor, config, settings, stats)
+    mark("geometry")
+    geo_out = stage_geometry(gm, scs, xs2, ys2, cor, l_post, config)
+    return geo_out, (prep_out[0], smooth_out[4], cor, ok_post)
+
+
+def _set_precision():
+    """Full float32 products everywhere: the 2e-3 termination tolerance is
+    unreachable with TF32 (the JAX package forces "highest" precision for
+    the same reason)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def solve_batch(gm: maps.GridMap, scenarios: Scenario, config: PlannerConfig,
+                settings: QPSettings | None = None, device=None,
+                stats: dict | None = None, hook=None) -> PathResult:
+    """Solve a batch of scenarios sharing one grid map, on ``device``
+    (``cuda`` unless the caller asks for another; the map and scenarios are
+    moved there). ``settings=None`` derives the solver settings from the
+    config's qp_* fields.
+
+    ``stats``, if given, receives the batch-global round count of each QP
+    (``smooth_rounds``, ``post_rounds``, ``qp1_rounds``, ``qp2_rounds``).
+    ``hook(name)``, if given, is called before each stage and with "done"
+    at the end (used for per-stage timing)."""
+    if settings is None:
+        settings = config.qp_settings()
+    dev = resolve_device(device)
+    _set_precision()
+    gm = to_device(gm, dev)
+    scs = to_device(scenarios, dev)
+    mark = hook or (lambda name: None)
+
+    geo_out, (ok_input, ok_smooth, cor, ok_post) = run_to_geometry(
+        gm, scs, config, settings, stats, hook)
+    ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
+    mark("path_qp")
+    sol1, sol2 = stage_path_qp(scs, geo_out, config, settings, stats)
+    ok_qp = sol1.converged & sol2.converged
+    mark("finalize")
+    x_out, y_out, heading_out, l, e, k, dk, s_out = stage_finalize(
+        ref, sol2, n_valid, config)
+    ok = ok_input & ok_smooth & cor.ok & ok_post & ok_init & ok_qp
+    mark("done")
+    return PathResult(
+        x=x_out, y=y_out, heading=heading_out, l=l, d_heading=e, k=k, d_k=dk,
+        s=s_out, n_valid=n_valid, ok=ok, blocked=cb.blocked,
+        qp_iters=sol1.iters + sol2.iters, ok_input=ok_input,
+        ok_smooth=ok_smooth, ok_corridor=cor.ok, ok_post=ok_post,
+        ok_init=ok_init, ok_qp=ok_qp, horizon_truncated=ref.truncated,
+        bounds=cb)
+
+
+def solve(gm: maps.GridMap, sc: Scenario, config: PlannerConfig,
+          settings: QPSettings | None = None, device=None) -> PathResult:
+    """Single-scenario solve: a batch of one through :func:`solve_batch`.
+    ``sc`` holds one query without a batch axis; so does the result."""
+    scs = tree_map(lambda a: torch.as_tensor(a)[None], sc)
+    res = solve_batch(gm, scs, config, settings, device=device)
+    return tree_map(lambda a: a[0], res)

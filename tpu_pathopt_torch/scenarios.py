@@ -1,0 +1,107 @@
+"""The adversarial benchmark batch, rebuilt in numpy.
+
+The same map and scenarios as the JAX package's ``bench.build_adversarial``:
+one 60 m x 60 m map at 0.2 m with four lanes (easy: a wide straight corridor;
+tight: pinched to 3.0 m by staggered juts; slalom: four posts forcing an
+S-weave; blocked: a dead-end wall), zero-padded to ``PAD_SHAPE``, and a batch
+of ``batch`` scenarios, a quarter per lane, from ``numpy.random`` seed 0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_pathopt_torch import maps
+from tpu_pathopt_torch.pipeline import Scenario
+from tpu_pathopt_torch.torchutil import resolve_device
+
+R_RAW = 16             # padded raw reference points per scenario
+PAD_SHAPE = (704, 712)  # canonical map array shape
+RESOLUTION = 0.2
+SIZE = 300
+LANES = ("easy", "tight", "slalom", "blocked")
+
+
+def adversarial_mask() -> np.ndarray:
+    """The 300 x 300 obstacle mask (True = occupied)."""
+    res, size = RESOLUTION, SIZE
+    mask = np.zeros((size, size), bool)
+    xx = (0.5 * size - 0.5 - np.arange(size)) * res   # rows
+    yy = (0.5 * size - 0.5 - np.arange(size)) * res   # cols
+
+    def block(x_lo, x_hi, y_lo, y_hi):
+        mask[np.ix_((xx >= x_lo) & (xx <= x_hi),
+                    (yy >= y_lo) & (yy <= y_hi))] = True
+
+    mask[:, np.abs(yy) >= 24.0] = True                # outer walls
+    for y_sep in (10.0, 0.0, -10.0):                  # lane separators
+        block(-30.0, 30.0, y_sep - 0.4, y_sep + 0.4)
+    # tight lane (y in [0.8, 9.6]): staggered juts -> 3.0 m gaps
+    block(-10.0, -8.0, 0.8, 2.6)
+    block(-10.0, -8.0, 5.6, 9.6)
+    block(5.0, 7.0, 0.8, 4.0)
+    block(5.0, 7.0, 7.0, 9.6)
+    # slalom lane (y in [-9.6, -0.8]): four posts
+    block(-16.0, -14.0, -9.6, -4.6)
+    block(-6.0, -4.0, -5.8, -0.8)
+    block(4.0, 6.0, -9.6, -4.6)
+    block(14.0, 16.0, -5.8, -0.8)
+    # blocked lane (y in [-23.6, -10.4]): dead-end wall across the lane
+    block(10.0, 11.0, -23.6, -10.4)
+    return mask
+
+
+def _lane_route(y_lane, n_sc, rng, x0=-25.0, x1=25.0):
+    """n_sc randomized scenarios along a straight lane at y = y_lane."""
+    pts, starts, targets = [], [], []
+    for _ in range(n_sc):
+        off = rng.uniform(-1.0, 1.0)
+        head = rng.uniform(-0.12, 0.12)
+        xs = np.linspace(x0, x1, 8)
+        ys = np.full(8, y_lane)
+        rx = np.concatenate([xs, np.full(R_RAW - 8, xs[-1])])
+        ry = np.concatenate([ys, np.full(R_RAW - 8, ys[-1])])
+        pts.append((rx, ry, 8))
+        starts.append((x0, y_lane + off, head))
+        targets.append((x1, y_lane, 0.0))
+    return pts, starts, targets
+
+
+def adversarial_arrays(batch: int = 256, seed: int = 0) -> dict:
+    """The scenario batch as numpy arrays: raw_x/raw_y (B, R_RAW) float32,
+    n_raw (B,) int32, start (B, 3) and target (B, 3) float32 [x, y,
+    heading]; lanes in the order of ``LANES``, ``batch // 4`` each."""
+    n = batch // 4
+    rng = np.random.default_rng(seed)
+    lanes = [_lane_route(y, n, rng) for y in (16.0, 5.0, -5.0, -17.0)]
+    pts = sum((lane[0] for lane in lanes), [])
+    return dict(
+        raw_x=np.stack([p[0] for p in pts]).astype(np.float32),
+        raw_y=np.stack([p[1] for p in pts]).astype(np.float32),
+        n_raw=np.asarray([p[2] for p in pts], np.int32),
+        start=np.asarray(sum((lane[1] for lane in lanes), []), np.float32),
+        target=np.asarray(sum((lane[2] for lane in lanes), []), np.float32))
+
+
+def scenario_batch(arrays: dict, device=None) -> Scenario:
+    """A :class:`Scenario` batch on ``device`` from
+    :func:`adversarial_arrays`-style numpy arrays."""
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    s, g = arrays["start"], arrays["target"]
+    return Scenario(
+        raw_x=t(arrays["raw_x"]), raw_y=t(arrays["raw_y"]),
+        n_raw=t(arrays["n_raw"]).long(),
+        start_x=t(s[:, 0]), start_y=t(s[:, 1]), start_heading=t(s[:, 2]),
+        start_k=torch.zeros(len(s), device=dev),
+        target_x=t(g[:, 0]), target_y=t(g[:, 1]), target_heading=t(g[:, 2]))
+
+
+def build_adversarial(batch: int = 256, seed: int = 0, device=None):
+    """(GridMap, Scenario batch, scenarios per lane) on ``device``: the map
+    is built (exact EDT) on the device itself."""
+    gm = maps.build_map(adversarial_mask(), resolution=RESOLUTION,
+                        pad_shape=PAD_SHAPE, device=device)
+    return gm, scenario_batch(adversarial_arrays(batch, seed), device), \
+        batch // 4
