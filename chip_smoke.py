@@ -12,7 +12,9 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    while recording the first arguments each kernel wrapper is given at each
    of its shapes, and holds every kernel against its plain PyTorch version
    on those very tensors, on the card, with the stated tolerance (K4's
-   parents and alive flags exactly), timing both with CUDA events;
+   parents and alive flags exactly), timing both with CUDA events (``ms``:
+   the device's time for one call, the stream held busy while the host
+   issues it; ``call_ms``: the same call as the host issues it);
 3. drives the main path: ``solve_batch`` on the 256-scenario adversarial
    batch at the default ``PlannerConfig`` on ``cuda``, with every launch
    counter set to 0 just before and read just after; it fails unless every
@@ -25,7 +27,8 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
 ``python3 chip_smoke.py --profile`` also runs the main path once under
 ``torch.profiler`` and prints device time by kernel, the number of kernels
-launched and the device's busy share.
+launched, the device's busy share, and the launches and device time of
+each of the port's kernels at each of its shapes.
 
 Every line before the last is a JSON object or the raw ``nvidia-smi`` line.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -51,6 +54,7 @@ BATCH = 256
 REPS = 15          # timed calls per version (median), after WARMUP calls
 WARMUP = 3
 REPEATS = 3        # timed main-path runs (median); the first is counted
+HOLD_CYCLES = 4_000_000      # about 2 ms of device clock before a timed call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
@@ -152,6 +156,26 @@ def work(name: str, args) -> tuple[int, int]:
     raise KeyError(name)
 
 
+# Where K2's and K3's argument lists hold the iteration count.
+ITERS_ARG = {"fused_admm_round": 17, "fused_structured_round": 11}
+
+
+def chain_steps(name: str, args) -> int | None:
+    """Dependent sweep steps of one K2/K3 launch (2 sweeps x N knots x
+    iters): the chain that bounds the one-block-per-scenario design."""
+    if name not in ITERS_ARG:
+        return None
+    n = args[1 if name == "fused_admm_round" else 0].shape[0]
+    return 2 * n * args[ITERS_ARG[name]]
+
+
+def no_iters(name: str, args) -> tuple:
+    """The same call with 0 iterations: the round's one-time cost (loading
+    the scenario into shared memory, writing it back, K2's residuals)."""
+    k = ITERS_ARG[name]
+    return args[:k] + (0,) + args[k + 1:]
+
+
 def bound_ms(name: str, args) -> tuple[float, str]:
     nbytes, flops = work(name, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -202,15 +226,23 @@ def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
     return seen
 
 
-def cuda_time_ms(fn) -> float:
+def cuda_time_ms(fn, hold: bool = True) -> float:
     """Median over REPS calls, after WARMUP calls, of each call's time
-    between two CUDA events on the current stream."""
+    between two CUDA events on the current stream. With ``hold`` the stream
+    is first kept busy for HOLD_CYCLES (``torch.cuda._sleep``), so the
+    host has enqueued the call before the device reaches the first event:
+    the interval is the device's time for the call (the kernel and the
+    wrapper's small copies), not the host's launch overhead, unless the host
+    takes longer than the hold. Without it the interval also holds the
+    host's time to issue the call."""
     for _ in range(WARMUP):
         fn()
     times = []
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -262,12 +294,20 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         cmp = compare(name, got, want)
         ms = cuda_time_ms(lambda: wrapper(*args))
+        call_ms = cuda_time_ms(lambda: wrapper(*args), hold=False)
         plain_ms = cuda_time_ms(lambda: plain(*args))
         b_ms, b_by = bound_ms(name, args)
+        steps = chain_steps(name, args)
+        chain = {}
+        if steps:
+            args0 = no_iters(name, args)
+            ms0 = cuda_time_ms(lambda: wrapper(*args0))
+            chain = dict(chain_steps=steps, ms_no_iters=ms0,
+                         ns_per_chain_step=(ms - ms0) * 1e6 / steps)
         shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
         line = dict(phase="kernel", name=name, shape=shape, **cmp, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    input_shapes=shapes)
+                    call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, **chain, input_shapes=shapes)
         emit(line)
         if not cmp["within_tol"] or not cmp["exact_int_outputs"]:
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
@@ -368,6 +408,10 @@ def profile_main_path(gm, scs, cfg, wall_unprofiled: float):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
+    # The port's kernels, one row per template instantiation, so launches
+    # and device time split by shape (K1 by nb, K3 by (nb, r)).
+    ours = [dict(name=k[:120], ms=t / 1e3, count=c)
+            for k, t, c in rows if "pathopt" in k]
     emit(dict(phase="profile", wall_ms=wall * 1e3,
               wall_unprofiled_ms=wall_unprofiled * 1e3,
               device_busy_ms=busy_s * 1e3,
@@ -375,7 +419,7 @@ def profile_main_path(gm, scs, cfg, wall_unprofiled: float):
               device_busy_share_profiled=busy_s / wall,
               device_kernels=sum(r[2] for r in rows),
               top=[dict(name=k[:80], ms=t / 1e3, count=c)
-                   for k, t, c in rows[:12]]))
+                   for k, t, c in rows[:12]], port_kernels=ours))
 
 
 def main() -> int:

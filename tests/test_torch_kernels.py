@@ -142,7 +142,9 @@ def test_k1_factor_plain_matches_pallas_and_btridiag(case):
 
 # --------------------------------- K2 ---------------------------------------
 
-def test_k2_round_plain_matches_pallas_round_and_residuals():
+def k2_case():
+    """A mid-solve K2 round on three chicane QPs: (the torch wrapper's
+    arguments, the Pallas kernel's result in interpret mode)."""
     qp = chicane_qps([0.8, -0.5, 0.0])
     B, N = qp.p_diag.shape[:2]
     rk, re, diag, offp = path_factors(qp)
@@ -163,14 +165,19 @@ def test_k2_round_plain_matches_pallas_round_and_residuals():
         lane(ube), lane(rk), lane(re), es, lane(qp.p_diag), lane(v),
         lane(zk), lane(ze), lane(yk), lane(ye), iters=iters, alpha=ST.alpha,
         sigma=ST.sigma, interpret=True)
-
     g = np.asarray(geom)[0]
-    got = fused_rounds.fused_admm_round(
-        (float(g[0]), float(g[1])), t(ci_l), t(wp_l), t(lane(qp.t_prev)),
-        t(lane(lbk)), t(lane(ubk)), t(lane(lbe)), t(lane(ube)), t(lane(rk)),
-        t(lane(re)), t(qp.end_idx).to(torch.int32), t(lane(qp.p_diag)),
-        t(lane(v)), t(lane(zk)), t(lane(ze)), t(lane(yk)), t(lane(ye)),
-        iters, ST.alpha, ST.sigma)
+    args = ((float(g[0]), float(g[1])), t(ci_l), t(wp_l), t(lane(qp.t_prev)),
+            t(lane(lbk)), t(lane(ubk)), t(lane(lbe)), t(lane(ube)),
+            t(lane(rk)), t(lane(re)), t(qp.end_idx).to(torch.int32),
+            t(lane(qp.p_diag)), t(lane(v)), t(lane(zk)), t(lane(ze)),
+            t(lane(yk)), t(lane(ye)), iters, ST.alpha, ST.sigma)
+    return args, want
+
+
+def test_k2_round_plain_matches_pallas_round_and_residuals():
+    args, want = k2_case()
+    B = args[1].shape[-1]
+    got = fused_rounds.fused_admm_round(*args)
     assert len(got) == 6 and got[5].shape == (4, B)
     for a, b in zip(got, want):
         assert a.shape == tuple(b.shape)
@@ -179,8 +186,9 @@ def test_k2_round_plain_matches_pallas_round_and_residuals():
 
 # --------------------------------- K3 ---------------------------------------
 
-@pytest.mark.parametrize("case", ["tension2_nb4", "post_nb3"])
-def test_k3_round_plain_matches_pallas_round(case):
+def k3_case(case):
+    """A mid-solve K3 round: (the torch wrapper's arguments, the Pallas
+    kernel's result in interpret mode)."""
     tq, pq = smoothing_qps()
     qp = tq if case == "tension2_nb4" else pq
     rho, diag, offp = structured_factors(qp)
@@ -196,10 +204,139 @@ def test_k3_round_plain_matches_pallas_round(case):
     want = jfused.fused_structured_round(
         *args, iters=ST.check_every, alpha=ST.alpha, sigma=ST.sigma,
         interpret=True)
-    got = fused_rounds.fused_structured_round(
-        *(t(a) for a in args), ST.check_every, ST.alpha, ST.sigma)
+    return tuple(t(a) for a in args) + (ST.check_every, ST.alpha,
+                                        ST.sigma), want
+
+
+@pytest.mark.parametrize("case", ["tension2_nb4", "post_nb3"])
+def test_k3_round_plain_matches_pallas_round(case):
+    args, want = k3_case(case)
+    got = fused_rounds.fused_structured_round(*args)
     for a, b in zip(got, want):
         assert a.shape == tuple(b.shape)
+        assert_close(a, b, ROUND_TOL)
+
+
+# ------------------- the sweep order of the K2/K3 kernels -------------------
+
+def kernel_order_solve(Ci, W, b):
+    """M x = b in the order the K2/K3 kernels use (csrc/btri_sweep.cuh),
+    float32, batch-leading: G_i = Cinv_i W_{i-1} and H_i = Cinv_i^T W_i^T
+    once; d = Cinv rhs and e = Cinv^T y in parallel over knots; one matvec
+    per sequential step, y_i = d_i - G_i y_{i-1} and x_i = e_i - H_i
+    x_{i+1}, each summed as two halves of the row as the kernels sum it."""
+    nb = Ci.shape[-1]
+    h = nb // 2
+    zero = torch.zeros_like(Ci[:, :1])
+    G = torch.cat([zero, Ci[:, 1:] @ W], 1)
+    H = torch.cat([Ci[:, :-1].transpose(-1, -2) @ W.transpose(-1, -2), zero],
+                  1)
+
+    def step(M, d, x):
+        lo = torch.einsum("bij,bj->bi", M[..., :h], x[..., :h])
+        hi = torch.einsum("bij,bj->bi", M[..., h:], x[..., h:])
+        return (d - lo) - hi
+
+    d = torch.einsum("bmij,bmj->bmi", Ci, b)
+    m = Ci.shape[1]
+    ys, y = [], torch.zeros_like(b[:, 0])
+    for i in range(m):
+        y = step(G[:, i], d[:, i], y)
+        ys.append(y)
+    e = torch.einsum("bmji,bmj->bmi", Ci, torch.stack(ys, 1))
+    xs, x = [None] * m, torch.zeros_like(b[:, 0])
+    for i in range(m - 1, -1, -1):
+        x = step(H[:, i], e[:, i], x)
+        xs[i] = x
+    return torch.stack(xs, 1)
+
+
+def normal_blocks64(case, rho_bar):
+    """Float64 normal blocks (diag (B, m, nb, nb), off (B, m-1, nb, nb)) of
+    the test QPs at one rho_bar."""
+    if case == "path_nb6":
+        qp = chicane_qps([0.8, -0.5, 0.0])
+        cls_knot, cls_end = jax.vmap(jassembly.rho_classes)(qp)
+        diag, off = jax.vmap(jassembly.normal_blocks,
+                             in_axes=(0, 0, 0, None))(
+            qp, rho_bar * cls_knot, rho_bar * cls_end, ST.sigma)
+        return (torch.as_tensor(np.asarray(diag, np.float64)),
+                torch.as_tensor(np.asarray(off, np.float64)))
+    from tpu_pathopt_torch.qp import structured
+    tq, pq = smoothing_qps()
+    qp = tq if case == "tension2_nb4" else pq
+    rho = rho_bar * np.asarray(jax.vmap(jstructured.rho_classes)(qp),
+                               np.float64)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    tqp = structured.BlockBandedQP(
+        p_diag=f64(qp.p_diag), p_off=f64(qp.p_off), q=f64(qp.q),
+        a_cur=f64(qp.a_cur), a_prev=f64(qp.a_prev), lb=f64(qp.lb),
+        ub=f64(qp.ub))
+    diag, offp = structured.normal_blocks(tqp, f64(rho), ST.sigma)
+    return diag, offp[:, 1:]
+
+
+def dense_factor_solve64(Ci, W, b):
+    """The float64 oracle: x with L L^T x = b, L the dense block-bidiagonal
+    factor (C_i = Cinv_i^-1 on the diagonal, W_i below it) that the float32
+    factors define, solved densely in float64."""
+    B, m, nb, _ = Ci.shape
+    out = np.empty(b.shape)
+    for k in range(B):
+        L = np.zeros((m * nb, m * nb))
+        for i in range(m):
+            L[i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] = np.linalg.inv(
+                Ci[k, i].double().numpy())
+            if i:
+                L[i * nb:(i + 1) * nb, (i - 1) * nb:i * nb] = \
+                    W[k, i - 1].double().numpy()
+        out[k] = np.linalg.solve(L @ L.T, b[k].double().numpy().reshape(-1)
+                                 ).reshape(m, nb)
+    return out
+
+
+@pytest.mark.parametrize("rho_bar", [1e-6, 0.1, 1e6])
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+def test_kernel_sweep_order_matches_btridiag_and_float64(case, rho_bar):
+    """The reassociated sweep of K2/K3 agrees with the JAX package's
+    solve_batched and with a float64 oracle at the path-QP shape and both K3
+    shapes, across the adaptive-rho clamp. The factors come from a float64
+    factorization rounded to float32, so the test holds the sweep's order
+    alone: at rho_bar = 1e6 the TENSION2 normal matrix is too ill-conditioned
+    for a float32 factorization (K1's concern, not the sweep's), and its
+    float32 factors define a visibly different matrix, so the oracle solves
+    the system those factors define."""
+    from tpu_pathopt_torch.qp import btridiag
+    diag, off = normal_blocks64(case, rho_bar)
+    C, W = btridiag.factor(diag, off)
+    Ci, W = btridiag.inv_factors(C, W)
+    Ci, W = Ci.float(), W.float()
+    rng = np.random.default_rng(3)
+    b = torch.as_tensor(rng.normal(size=Ci.shape[:3]).astype(np.float32))
+
+    got = kernel_order_solve(Ci, W, b)
+    assert got.dtype == torch.float32 and got.shape == b.shape
+    plain = jbtridiag.solve_batched(jnp.asarray(Ci.numpy()),
+                                    jnp.asarray(W.numpy()),
+                                    jnp.asarray(b.numpy()))
+    assert_close(got, plain, ROUND_TOL)
+    assert_close(got, dense_factor_solve64(Ci, W, b), ROUND_TOL)
+
+
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+def test_round_in_kernel_sweep_order_matches_pallas_round(case, monkeypatch):
+    """A whole 25-iteration round with the K2/K3 kernels' sweep order in
+    place of the plain solve stays within the rounds' tolerance of the
+    Pallas kernel."""
+    monkeypatch.setattr(fused_rounds.btridiag, "solve_batched",
+                        kernel_order_solve)
+    if case == "path_nb6":
+        args, want = k2_case()
+        got = fused_rounds.admm_round_plain(*args)
+    else:
+        args, want = k3_case(case)
+        got = fused_rounds.structured_round_plain(*args)
+    for a, b in zip(got, want):
         assert_close(a, b, ROUND_TOL)
 
 
@@ -281,9 +418,36 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
         kernels.expect("x", x.t(), (4, 3), torch.float32, x.device)
 
 
+def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
+    """K2/K3 run one block per scenario with the round in shared memory: at
+    the default config's shapes a block takes at most 110 KB, so two fit
+    on an SM and B = 256 runs in one wave on 132 SMs; a shape beyond one
+    block's 227 KB or 256 threads raises instead of launching."""
+    from tpu_pathopt_torch.config import PlannerConfig
+    cfg = PlannerConfig()
+    shapes = [("fused_admm_round", cfg.n_knots, 6, 3),
+              ("fused_structured_round", cfg.n_segment_points, 4, 3),
+              ("fused_structured_round", cfg.dp_layers, 3, 3)]
+    for kernel, n, nb, r in shapes:
+        smem = fused_rounds.round_smem_bytes(kernel, n, nb, r)
+        assert smem <= 110 * 1024, (kernel, n, smem)
+        assert fused_rounds.check_round_fits(kernel, n, nb, r) == smem
+    # K2 at N = 128: 123 floats per knot and a 48-float reduction tail.
+    assert fused_rounds.round_smem_bytes("fused_admm_round", 128) == 63168
+    big = fused_rounds.round_smem_bytes("fused_admm_round", 500)
+    assert big > fused_rounds.MAX_SMEM_BYTES == 227 * 1024
+    with pytest.raises(ValueError, match=f"needs {big} bytes"):
+        fused_rounds.check_round_fits("fused_admm_round", 500)
+    with pytest.raises(ValueError, match="256 knots"):
+        fused_rounds.check_round_fits("fused_structured_round", 257, 4, 3)
+    with pytest.raises(ValueError):
+        fused_rounds.check_round_fits("fused_admm_round", 0)
+
+
 def test_kernel_sources_carry_their_notes():
     """Each .cu file names the TPU kernel it replaces, what bounds it on
-    the card and what its design does about that; every source is built."""
+    the card and what its design does about that; every source and every
+    header is in the build (the headers in its hash)."""
     for name in kernels.SOURCES:
         text = (kernels.CSRC / name).read_text()
         head = text.split("#include")[0]
@@ -293,5 +457,7 @@ def test_kernel_sources_carry_their_notes():
         assert 'extern "C"' in text, name
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == sorted(
         kernels.SOURCES)
+    assert sorted(p.name for p in kernels.CSRC.glob("*.cuh")) == sorted(
+        kernels.HEADERS)
     assert "-gencode" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS

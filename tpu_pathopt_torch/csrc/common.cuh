@@ -2,8 +2,9 @@
 //
 // Layout convention of K1-K3: every per-scenario array is stored with the
 // scenario batch as the fastest-moving axis, e.g. a (N, nb, nb) block array
-// of B scenarios is (N, nb, nb, B). One thread owns one scenario, so the 32
-// threads of a warp read 32 neighbouring floats on every load.
+// of B scenarios is (N, nb, nb, B). In K1 and K4 one thread owns one
+// scenario, so the 32 threads of a warp read 32 neighbouring floats on every
+// load; K2 and K3 give each scenario a thread block (btri_sweep.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -16,29 +16,42 @@
 // (-v_i[0:3] + Tprev_i v_{i-1}), 1 kappa row, the collision rows
 // v0 + lf v1 + v4 and v0 + lr v1 + v5, and the 2 end rows v[end_idx][0:2].
 // After the iterations it writes per scenario res = [pri, dua,
-// max(|Av|, |z|), max(|Pv|, |A^T y|)] on the final iterate. The order of
-// operations follows the TPU kernel (fused_rounds.py:253-288).
+// max(|Av|, |z|), max(|Pv|, |A^T y|)] on the final iterate. The sweeps run
+// in the reassociated order of btri_sweep.cuh (G_i = Cinv_i W_i, one matvec
+// per step); everything else follows the TPU kernel (fused_rounds.py:253-288).
 //
-// What bounds it on the H100: every iteration is two sequential sweeps over
-// N = 128 knots, each step a dependent 6x6 matvec on the previous step's
-// result. The bytes it needs (the factors and the problem, about 20 MB at
-// B = 256, read once per round) and its flops are small; the latency of the
-// 2 x 128 dependent steps per iteration, on one thread per scenario, is what
-// bounds it, and B = 256 scenarios fill only 8 SMs.
+// What bounds it on the H100: the two sweeps, the only sequential part.
+// Each step is one dependent 6 x 6 matvec on the previous step's result:
+// 2 sweeps x 128 knots x 25 iterations = 6400 dependent steps per launch.
+// At about 40-80 ns a step (a round of shuffles, then a chain of 4 dependent
+// float operations, every operand in shared memory) that is 0.25-0.5 ms. The
+// bytes (the factors and the problem, about 20 MB at B = 256, read once:
+// 0.006 ms at 3.35 TB/s) and the flops are far below it.
 //
-// What the design does about it: one thread per scenario runs all iterations
-// of the round without leaving the kernel. The iterate lives in the output
-// arrays and the sweep scratch in one (N, 6, B) buffer, batch-fastest, so
-// each load is coalesced across the warp and the working set (under 20 MB)
-// stays in the 50 MB L2 between iterations. Only the lower triangle of each
-// Cinv block is read. The end rows are applied from an integer knot index
-// instead of a one-hot selector.
-#include "common.cuh"
+// What the design does about it: one CTA per scenario, one thread per knot
+// (128 threads at N = 128), so B = 256 scenarios are 256 CTAs, resident in
+// one wave at 2 per SM on 132 SMs (264 slots). The CTA copies its scenario's
+// Cinv (lower triangle), the transition blocks and the precomputed
+// G_i = Cinv_i W_i, H_i = Cinv_i^T W_{i+1}^T into shared memory once:
+// (2 x 36 + 2 x 6 + 21 + 18) floats x 128 knots + 48 = 63,168 bytes, so two
+// CTAs take 124 KB of the SM's 228 KB. Thread i keeps knot i's v, z, y,
+// rho, lb and ub in registers for the whole launch. The rhs, A vt, the
+// projection, the dual update and the residuals run in parallel over knots,
+// exchanging neighbour vectors through shared memory between barriers; the
+// residuals end in a warp-shuffle and shared-memory max reduction that
+// propagates NaN as jnp.max does. Only the sweeps are serial, on lanes 0-5
+// of warp 0, one row per lane. Nothing is written to device memory before
+// the last iteration ends.
+#include "btri_sweep.cuh"
 
 namespace pathopt {
 namespace {
 
 constexpr int NB = 6;
+// Shared memory beyond the sweep's: the transition blocks (3 x 6 per knot)
+// and the residual reduction's 6 maxima per warp.
+constexpr int kTpFloats = 3 * NB;
+constexpr int kResidualFloats = 6 * kMaxRoundWarps;
 
 struct PathArgs {
   const float* Ci;    // (N, 6, 6, B)
@@ -52,55 +65,20 @@ struct PathArgs {
   const float* re;    // (2, B)
   const int* end_idx; // (B,)
   const float* pd;    // (N, 6, B) diagonal of P
-  float* v;           // (N, 6, B) iterate, in and out
+  float* v;           // (N, 6, B) outputs
   float* zk;
   float* ze;          // (2, B)
   float* yk;
   float* ye;
   float* res;         // (4, B)
-  float* sweep;       // (N, 6, B) scratch
   int n, batch, iters;
   float alpha, one_minus_alpha, sigma, lf, lr;
 };
 
-struct Lane {
-  PathArgs p;
-  int b;
-  __device__ size_t k6(int i, int r) const {
-    return (static_cast<size_t>(i) * NB + r) * p.batch + b;
-  }
-  __device__ size_t m66(int i, int r, int c) const {
-    return ((static_cast<size_t>(i) * NB + r) * NB + c) * p.batch + b;
-  }
-  __device__ size_t t36(int i, int r, int c) const {
-    return ((static_cast<size_t>(i) * 3 + r) * NB + c) * p.batch + b;
-  }
-  __device__ size_t e2(int r) const {
-    return static_cast<size_t>(r) * p.batch + b;
-  }
-};
-
-// contrib[c] = sum_r tp[i][r][c] w[r] over the 3 transition rows of knot i:
-// the A^T share that row group i sends to knot i-1.
-__device__ __forceinline__ void trans_contrib(const Lane& L, int i,
-                                              const float w[NB],
-                                              float out[NB]) {
-#pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    float acc = L.p.tp[L.t36(i, 0, c)] * w[0];
-    acc = acc + L.p.tp[L.t36(i, 1, c)] * w[1];
-    acc = acc + L.p.tp[L.t36(i, 2, c)] * w[2];
-    out[c] = acc;
-  }
-}
-
-// (A^T [w; we])_i given w of knots i and i+1 (wn unused when last).
-__device__ __forceinline__ void at_mul_knot(const Lane& L, int i,
-                                            const float w[NB],
-                                            const float wn[NB], bool last,
-                                            bool is_end, float we0, float we1,
-                                            float out[NB]) {
-  const float lf = L.p.lf, lr = L.p.lr;
+// (A^T [w; we])_i without the share of knot i+1's transition rows.
+__device__ __forceinline__ void at_mul_own(const float w[NB], float lf,
+                                           float lr, bool is_end, float we0,
+                                           float we1, float out[NB]) {
   float o0 = -w[0] + w[4] + w[5];
   float o1 = -w[1] + lf * w[4] + lr * w[5];
   if (is_end) {
@@ -113,218 +91,233 @@ __device__ __forceinline__ void at_mul_knot(const Lane& L, int i,
   out[3] = 0.f;
   out[4] = w[4];
   out[5] = w[5];
-  if (!last) {
-    float contrib[NB];
-    trans_contrib(L, i + 1, wn, contrib);
+}
+
+// X[:, i] = sum_r tp_i[r][:] w[r]: the A^T share that knot i's transition
+// rows send to knot i-1.
+__device__ __forceinline__ void store_trans_contrib(const float* tp, float* X,
+                                                   int n, int i,
+                                                   const float w[NB]) {
 #pragma unroll
-    for (int c = 0; c < NB; ++c) out[c] = out[c] + contrib[c];
+  for (int c = 0; c < NB; ++c) {
+    float acc = tp[c * n] * w[0];
+    acc = acc + tp[(NB + c) * n] * w[1];
+    acc = acc + tp[(2 * NB + c) * n] * w[2];
+    X[c * n + i] = acc;
   }
 }
 
 // Rows of A v at knot i given v_i and v_{i-1} (zero before knot 0).
-__device__ __forceinline__ void a_mul_knot(const Lane& L, int i,
-                                           const float v[NB],
-                                           const float vp[NB],
-                                           float z[NB]) {
+__device__ __forceinline__ void a_mul_knot(const float* tp, int n, float lf,
+                                           float lr, const float v[NB],
+                                           const float vp[NB], float z[NB]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    float ctr = L.p.tp[L.t36(i, r, 0)] * vp[0];
+    float ctr = tp[(r * NB) * n] * vp[0];
 #pragma unroll
-    for (int j = 1; j < NB; ++j) ctr = ctr + L.p.tp[L.t36(i, r, j)] * vp[j];
+    for (int j = 1; j < NB; ++j) ctr = ctr + tp[(r * NB + j) * n] * vp[j];
     z[r] = -v[r] + ctr;
   }
   z[3] = v[2];
-  z[4] = v[0] + L.p.lf * v[1] + v[4];
-  z[5] = v[0] + L.p.lr * v[1] + v[5];
+  z[4] = v[0] + lf * v[1] + v[4];
+  z[5] = v[0] + lr * v[1] + v[5];
 }
 
-__global__ void __launch_bounds__(kScenarioThreads)
+__global__ void __launch_bounds__(kMaxRoundThreads)
 fused_admm_round_kernel(PathArgs p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.batch) return;
-  const Lane L{p, b};
-  const int n = p.n;
+  extern __shared__ float smem[];
+  const int n = p.n, b = blockIdx.x, i = threadIdx.x;
+  const bool own = i < n;
+  const size_t B = p.batch;
+  const SweepSmem<NB> S(smem, n);
+  float* const tp_s = S.rest + i;  // knot i's (3, 6) block, stride n
+  float* const red = S.rest + kTpFloats * n;
+  auto k6 = [&](int k, int r) { return (static_cast<size_t>(k) * NB + r) * B + b; };
+  auto e2 = [&](int r) { return static_cast<size_t>(r) * B + b; };
+
   // The end knot, clamped into [0, n) as the plain version's end_knot does.
+  // Only its thread uses the end rows.
   const int e = min(max(p.end_idx[b], 0), n - 1);
-  const float re0 = p.re[L.e2(0)], re1 = p.re[L.e2(1)];
-  const float lbe0 = p.lbe[L.e2(0)], lbe1 = p.lbe[L.e2(1)];
-  const float ube0 = p.ube[L.e2(0)], ube1 = p.ube[L.e2(1)];
-  float ze0 = p.ze[L.e2(0)], ze1 = p.ze[L.e2(1)];
-  float ye0 = p.ye[L.e2(0)], ye1 = p.ye[L.e2(1)];
-  const float alpha = p.alpha, oma = p.one_minus_alpha;
+  const bool is_end = i == e;
+  const float re0 = p.re[e2(0)], re1 = p.re[e2(1)];
+  const float lbe0 = p.lbe[e2(0)], lbe1 = p.lbe[e2(1)];
+  const float ube0 = p.ube[e2(0)], ube1 = p.ube[e2(1)];
+  float ze0 = p.ze[e2(0)], ze1 = p.ze[e2(1)];
+  float ye0 = p.ye[e2(0)], ye1 = p.ye[e2(1)];
+  const float alpha = p.alpha, oma = p.one_minus_alpha, sigma = p.sigma;
+  const float lf = p.lf, lr = p.lr;
 
-  for (int it = 0; it < p.iters; ++it) {
-    // ---- rhs = sigma v + A^T (rho z - y), into the sweep buffer ----
-    const float we0 = re0 * ze0 - ye0;
-    const float we1 = re1 * ze1 - ye1;
-    float w[NB], wn[NB];
+  // ---- load the scenario once: the blocks, then knot i's vectors ----
+  if (own) {
+    const size_t m0 = static_cast<size_t>(i) * NB * NB * B + b;
+    load_knot_factors<NB>(S, n, i, p.Ci + m0, i > 0 ? p.Wp + m0 : nullptr,
+                          i < n - 1 ? p.Wp + m0 + NB * NB * B : nullptr, B);
 #pragma unroll
-    for (int r = 0; r < NB; ++r)
-      w[r] = p.rk[L.k6(0, r)] * p.zk[L.k6(0, r)] - p.yk[L.k6(0, r)];
-    for (int i = 0; i < n; ++i) {
-      const bool last = i == n - 1;
-      if (!last) {
-#pragma unroll
-        for (int r = 0; r < NB; ++r)
-          wn[r] = p.rk[L.k6(i + 1, r)] * p.zk[L.k6(i + 1, r)]
-                  - p.yk[L.k6(i + 1, r)];
-      }
-      float out[NB];
-      at_mul_knot(L, i, w, wn, last, i == e, we0, we1, out);
-#pragma unroll
-      for (int c = 0; c < NB; ++c)
-        p.sweep[L.k6(i, c)] = p.sigma * p.v[L.k6(i, c)] + out[c];
-#pragma unroll
-      for (int r = 0; r < NB; ++r) w[r] = wn[r];
-    }
-
-    // ---- forward sweep: y_i = Cinv_i (rhs_i - W_i y_{i-1}) ----
-    float yp[NB];
-#pragma unroll
-    for (int r = 0; r < NB; ++r) yp[r] = 0.f;
-    for (int i = 0; i < n; ++i) {
-      float t[NB];
-#pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        float acc = p.Wp[L.m66(i, r, 0)] * yp[0];
-#pragma unroll
-        for (int j = 1; j < NB; ++j) acc = acc + p.Wp[L.m66(i, r, j)] * yp[j];
-        t[r] = p.sweep[L.k6(i, r)] - acc;
-      }
-#pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        float acc = p.Ci[L.m66(i, r, 0)] * t[0];
-#pragma unroll
-        for (int j = 1; j <= r; ++j) acc = acc + p.Ci[L.m66(i, r, j)] * t[j];
-        yp[r] = acc;
-        p.sweep[L.k6(i, r)] = acc;
-      }
-    }
-
-    // ---- backward sweep: vt_i = Cinv_i^T (y_i - W_{i+1}^T vt_{i+1}) ----
-    float vn[NB];
-#pragma unroll
-    for (int r = 0; r < NB; ++r) vn[r] = 0.f;
-    for (int i = n - 1; i >= 0; --i) {
-      float t[NB];
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        float acc = 0.f;
-        if (i < n - 1) {
-          acc = p.Wp[L.m66(i + 1, 0, c)] * vn[0];
-#pragma unroll
-          for (int a = 1; a < NB; ++a)
-            acc = acc + p.Wp[L.m66(i + 1, a, c)] * vn[a];
-        }
-        t[c] = p.sweep[L.k6(i, c)] - acc;
-      }
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        float acc = p.Ci[L.m66(i, c, c)] * t[c];
-#pragma unroll
-        for (int a = c + 1; a < NB; ++a) acc = acc + p.Ci[L.m66(i, a, c)] * t[a];
-        vn[c] = acc;
-        p.sweep[L.k6(i, c)] = acc;
-      }
-    }
-
-    // ---- A vt, relaxed projection and dual update, knot by knot ----
-    const float zte0 = p.sweep[L.k6(e, 0)];
-    const float zte1 = p.sweep[L.k6(e, 1)];
-    float vp[NB];
-#pragma unroll
-    for (int r = 0; r < NB; ++r) vp[r] = 0.f;
-    for (int i = 0; i < n; ++i) {
-      float vt[NB], zt[NB];
-#pragma unroll
-      for (int c = 0; c < NB; ++c) vt[c] = p.sweep[L.k6(i, c)];
-      a_mul_knot(L, i, vt, vp, zt);
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        const size_t k = L.k6(i, c);
-        p.v[k] = alpha * vt[c] + oma * p.v[k];
-        const float rho = p.rk[k];
-        const float ztmp = alpha * zt[c] + oma * p.zk[k] + p.yk[k] / rho;
-        const float znew = clip(ztmp, p.lbk[k], p.ubk[k]);
-        p.zk[k] = znew;
-        p.yk[k] = rho * (ztmp - znew);
-      }
-#pragma unroll
-      for (int c = 0; c < NB; ++c) vp[c] = vt[c];
-    }
-    const float ztmp0 = alpha * zte0 + oma * ze0 + ye0 / re0;
-    const float ztmp1 = alpha * zte1 + oma * ze1 + ye1 / re1;
-    const float zn0 = clip(ztmp0, lbe0, ube0);
-    const float zn1 = clip(ztmp1, lbe1, ube1);
-    ye0 = re0 * (ztmp0 - zn0);
-    ye1 = re1 * (ztmp1 - zn1);
-    ze0 = zn0;
-    ze1 = zn1;
+    for (int k = 0; k < kTpFloats; ++k)
+      tp_s[k * n] = p.tp[(static_cast<size_t>(i) * kTpFloats + k) * B + b];
   }
-  p.ze[L.e2(0)] = ze0;
-  p.ze[L.e2(1)] = ze1;
-  p.ye[L.e2(0)] = ye0;
-  p.ye[L.e2(1)] = ye1;
-
-  // ---- OSQP unscaled residuals of the final iterate ----
-  float m_pri = 0.f, m_dua = 0.f, m_av = 0.f, m_z = 0.f, m_pv = 0.f,
-        m_aty = 0.f;
-  float vp[NB], w[NB], wn[NB];
+  float v[NB], zk[NB], yk[NB], rk[NB], lbk[NB], ubk[NB];
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
-    vp[r] = 0.f;
-    w[r] = p.yk[L.k6(0, r)];
+    const size_t k = own ? k6(i, r) : 0;
+    v[r] = p.v[k];
+    zk[r] = p.zk[k];
+    yk[r] = p.yk[k];
+    rk[r] = p.rk[k];
+    lbk[r] = p.lbk[k];
+    ubk[r] = p.ubk[k];
   }
-  for (int i = 0; i < n; ++i) {
-    const bool last = i == n - 1;
-    float v[NB], av[NB], aty[NB];
+  __syncthreads();
+
+  for (int it = 0; it < p.iters; ++it) {
+    // ---- rhs = sigma v + A^T (rho z - y), then d = Cinv rhs ----
+    float w[NB];
 #pragma unroll
-    for (int c = 0; c < NB; ++c) v[c] = p.v[L.k6(i, c)];
-    a_mul_knot(L, i, v, vp, av);
-    if (!last) {
+    for (int r = 0; r < NB; ++r) w[r] = rk[r] * zk[r] - yk[r];
+    if (own) store_trans_contrib(tp_s, S.X, n, i, w);
+    __syncthreads();
+    if (own) {
+      float rhs[NB];
+      at_mul_own(w, lf, lr, is_end, re0 * ze0 - ye0, re1 * ze1 - ye1, rhs);
+      if (i < n - 1) {
 #pragma unroll
-      for (int r = 0; r < NB; ++r) wn[r] = p.yk[L.k6(i + 1, r)];
+        for (int c = 0; c < NB; ++c) rhs[c] = rhs[c] + S.X[c * n + i + 1];
+      }
+#pragma unroll
+      for (int c = 0; c < NB; ++c) rhs[c] = sigma * v[c] + rhs[c];
+      store_ci_mul<NB>(S, n, i, rhs);
     }
-    at_mul_knot(L, i, w, wn, last, i == e, ye0, ye1, aty);
+    __syncthreads();
+
+    // ---- the two sweeps: D = vt ----
+    solve_in_place<NB>(S, n, i);
+
+    // ---- A vt, relaxed projection and dual update, knot by knot ----
+    if (own) {
+      float vt[NB], vp[NB], zt[NB];
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        vt[c] = S.D[i * NB + c];
+        vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
+      }
+      a_mul_knot(tp_s, n, lf, lr, vt, vp, zt);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        v[c] = alpha * vt[c] + oma * v[c];
+        const float ztmp = alpha * zt[c] + oma * zk[c] + yk[c] / rk[c];
+        const float znew = clip(ztmp, lbk[c], ubk[c]);
+        zk[c] = znew;
+        yk[c] = rk[c] * (ztmp - znew);
+      }
+      if (is_end) {
+        const float ztmp0 = alpha * vt[0] + oma * ze0 + ye0 / re0;
+        const float ztmp1 = alpha * vt[1] + oma * ze1 + ye1 / re1;
+        const float zn0 = clip(ztmp0, lbe0, ube0);
+        const float zn1 = clip(ztmp1, lbe1, ube1);
+        ye0 = re0 * (ztmp0 - zn0);
+        ye1 = re1 * (ztmp1 - zn1);
+        ze0 = zn0;
+        ze1 = zn1;
+      }
+    }
+  }
+
+  // ---- OSQP unscaled residuals of the final iterate ----
+  // Knot i needs v_{i-1} and knot i+1's transition share of A^T y.
+  __syncthreads();
+  if (own) {
+#pragma unroll
+    for (int c = 0; c < NB; ++c) S.D[i * NB + c] = v[c];
+    store_trans_contrib(tp_s, S.X, n, i, yk);
+  }
+  __syncthreads();
+  // pri, dua, |Av|, |z|, |Pv|, |A^T y|
+  float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (own) {
+    float vp[NB], av[NB], aty[NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
+    a_mul_knot(tp_s, n, lf, lr, v, vp, av);
+    at_mul_own(yk, lf, lr, is_end, ye0, ye1, aty);
+    if (i < n - 1) {
+#pragma unroll
+      for (int c = 0; c < NB; ++c) aty[c] = aty[c] + S.X[c * n + i + 1];
+    }
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
-      const float z = p.zk[L.k6(i, c)];
-      const float pv = p.pd[L.k6(i, c)] * v[c];
-      m_pri = absmax(m_pri, av[c] - z);
-      m_av = absmax(m_av, av[c]);
-      m_z = absmax(m_z, z);
-      m_dua = absmax(m_dua, pv + aty[c]);
-      m_pv = absmax(m_pv, pv);
-      m_aty = absmax(m_aty, aty[c]);
-      vp[c] = v[c];
-      w[c] = wn[c];
+      const float pv = p.pd[k6(i, c)] * v[c];
+      m[0] = absmax(m[0], av[c] - zk[c]);
+      m[1] = absmax(m[1], pv + aty[c]);
+      m[2] = absmax(m[2], av[c]);
+      m[3] = absmax(m[3], zk[c]);
+      m[4] = absmax(m[4], pv);
+      m[5] = absmax(m[5], aty[c]);
+    }
+    if (is_end) {  // the end rows: A v there is v_e[0:2]
+      m[0] = absmax(absmax(m[0], v[0] - ze0), v[1] - ze1);
+      m[2] = absmax(absmax(m[2], v[0]), v[1]);
+      m[3] = absmax(absmax(m[3], ze0), ze1);
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      p.v[k6(i, c)] = v[c];
+      p.zk[k6(i, c)] = zk[c];
+      p.yk[k6(i, c)] = yk[c];
+    }
+    if (is_end) {
+      p.ze[e2(0)] = ze0;
+      p.ze[e2(1)] = ze1;
+      p.ye[e2(0)] = ye0;
+      p.ye[e2(1)] = ye1;
     }
   }
-  const float ave0 = p.v[L.k6(e, 0)], ave1 = p.v[L.k6(e, 1)];
-  const float pri_e = nanmax(fabsf(ave0 - ze0), fabsf(ave1 - ze1));
-  const float av_e = nanmax(fabsf(ave0), fabsf(ave1));
-  const float z_e = nanmax(fabsf(ze0), fabsf(ze1));
-  p.res[L.e2(0)] = nanmax(m_pri, pri_e);
-  p.res[L.e2(1)] = m_dua;
-  p.res[L.e2(2)] = nanmax(nanmax(m_av, av_e), nanmax(m_z, z_e));
-  p.res[L.e2(3)] = nanmax(m_pv, m_aty);
+  const int warp = i >> 5, lane = i & 31;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    m[k] = warp_nanmax(m[k]);
+    if (lane == 0) red[k * kMaxRoundWarps + warp] = m[k];
+  }
+  __syncthreads();
+  if (i == 0) {
+    const int warps = blockDim.x >> 5;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      for (int w = 1; w < warps; ++w)
+        m[k] = nanmax(m[k], red[k * kMaxRoundWarps + w]);
+    p.res[e2(0)] = m[0];
+    p.res[e2(1)] = m[1];
+    p.res[e2(2)] = nanmax(m[2], m[3]);
+    p.res[e2(3)] = nanmax(m[4], m[5]);
+  }
 }
 
 }  // namespace
 }  // namespace pathopt
 
+// Returns the cudaError_t of the launch (0 on success). smem_bytes must be
+// the CTA's shared memory for n knots (fused_rounds.round_smem_bytes); any
+// other size, n above 256 or a batch of 0 returns cudaErrorInvalidValue
+// without launching.
 extern "C" int pathopt_fused_admm_round(
     const float* Ci, const float* Wp, const float* tp, const float* lbk,
     const float* ubk, const float* lbe, const float* ube, const float* rk,
     const float* re, const int* end_idx, const float* pd, float* v,
-    float* zk, float* ze, float* yk, float* ye, float* res, float* sweep,
-    int n, int batch, int iters, float alpha, float one_minus_alpha,
+    float* zk, float* ze, float* yk, float* ye, float* res, int n, int batch,
+    int iters, int smem_bytes, float alpha, float one_minus_alpha,
     float sigma, float lf, float lr, void* stream) {
-  pathopt::PathArgs a{Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
-                      v, zk, ze, yk, ye, res, sweep, n, batch, iters, alpha,
-                      one_minus_alpha, sigma, lf, lr};
-  pathopt::fused_admm_round_kernel<<<pathopt::scenario_blocks(batch),
-                                     pathopt::kScenarioThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(a);
-  return pathopt::launch_status();
+  using namespace pathopt;
+  const size_t need =
+      round_smem_bytes(n, NB, kTpFloats, kResidualFloats);
+  if (const int err = round_config_error(n, batch, need, smem_bytes))
+    return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fused_admm_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  PathArgs a{Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
+             v, zk, ze, yk, ye, res, n, batch, iters, alpha,
+             one_minus_alpha, sigma, lf, lr};
+  fused_admm_round_kernel<<<batch, round_threads(n), smem_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return launch_status();
 }

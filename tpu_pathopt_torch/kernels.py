@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_factor.cu", "fused_admm_round.cu",
            "fused_structured_round.cu", "dp_forward.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "btri_sweep.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -122,9 +122,9 @@ def lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
         L.pathopt_fused_admm_round.argtypes = (
-            [p] * 18 + [i, i, i] + [f] * 5 + [p])
+            [p] * 17 + [i] * 4 + [f] * 5 + [p])
         L.pathopt_fused_structured_round.argtypes = (
-            [p] * 12 + [i] * 5 + [f] * 3 + [p])
+            [p] * 11 + [i] * 6 + [f] * 3 + [p])
         L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]
         for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                    L.pathopt_fused_structured_round, L.pathopt_dp_forward):

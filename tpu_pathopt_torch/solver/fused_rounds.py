@@ -11,10 +11,13 @@
   ``iters`` ADMM iterations of a generic block-banded QP. Plain version: the
   plain structured step looped ``iters`` times.
 
-The kernels' arrays are batch-last ("lane-major", e.g. (N, nb, nb, B)) so a
-warp's 32 scenarios read neighbouring floats. A wrapper given CPU tensors
-runs the plain version; given CUDA tensors it launches its kernel on the
-current stream or raises. There is no fallback between the two.
+The kernels' arrays are batch-last ("lane-major", e.g. (N, nb, nb, B)). K1
+gives each scenario one thread, so a warp's 32 scenarios read neighbouring
+floats; K2 and K3 give each scenario a thread block with one thread per
+knot and hold the whole round in its shared memory, which bounds N
+(:func:`round_smem_bytes`). A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches its kernel on the current stream or
+raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -36,6 +39,40 @@ def lane(a):
 def unlane(a):
     """Batch-last -> batch-leading."""
     return a.movedim(-1, 0)
+
+
+# K2 and K3 run one thread block per scenario, one thread per knot, with the
+# round in shared memory (csrc/btri_sweep.cuh); these are its limits.
+MAX_ROUND_THREADS = 256
+MAX_SMEM_BYTES = 232448     # 227 KB, the most one block can have on the H100
+
+
+def round_smem_bytes(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
+    """Bytes of shared memory one block of K2 (``"fused_admm_round"``, nb 6)
+    or K3 (``"fused_structured_round"``) takes at ``n`` knots: per knot
+    G_i and H_i (nb x nb each), two vectors of nb and Cinv's lower triangle,
+    then K2's transition blocks (3 x 6) and a 6-float-per-warp reduction
+    tail, or K3's a_cur and a_prev (r x nb each). ``round_smem_bytes`` in
+    ``csrc/btri_sweep.cuh`` computes the same, and the launchers refuse any
+    other size."""
+    per_knot = 2 * nb * nb + 2 * nb + nb * (nb + 1) // 2
+    if kernel == "fused_admm_round":
+        return 4 * ((per_knot + 3 * nb) * n + 6 * (MAX_ROUND_THREADS // 32))
+    if kernel == "fused_structured_round":
+        return 4 * (per_knot + 2 * r * nb) * n
+    raise KeyError(kernel)
+
+
+def check_round_fits(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
+    """The shared memory of a K2/K3 launch at this shape; ValueError when
+    one block cannot hold it or its n knots need more than 256 threads."""
+    smem = round_smem_bytes(kernel, n, nb, r)
+    if not 1 <= n <= MAX_ROUND_THREADS or smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{kernel}: N={n}, nb={nb}, r={r} needs {smem} bytes of shared "
+            f"memory and {n} threads in one block; the kernel takes at most "
+            f"{MAX_SMEM_BYTES} bytes and {MAX_ROUND_THREADS} knots")
+    return smem
 
 
 # --------------------------------- K1 ---------------------------------------
@@ -144,7 +181,8 @@ def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     Ci/Wp (N, 6, 6, B), tp (N, 3, 6, B), lbk/ubk/rk/pd/v/zk/yk (N, 6, B),
     lbe/ube/re/ze/ye (2, B); end_idx (B,) int32, clamped into [0, N). Returns
     (v, zk, ze, yk, ye, res) with res (4, B) = per-scenario [pri_res,
-    dua_res, max(|Av|, |z|), max(|Pv|, |A^T y|)] of the final iterate."""
+    dua_res, max(|Av|, |z|), max(|Pv|, |A^T y|)] of the final iterate. On
+    CUDA tensors N is at most 256 (:func:`check_round_fits`)."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
         return admm_round_plain(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re,
@@ -160,16 +198,16 @@ def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     for name, t in args.items():
         kernels.expect(name, t, shapes[name], F32, dev)
     kernels.expect("end_idx", end_idx, (B,), torch.int32, dev)
-    # The kernel iterates in place on its outputs.
+    smem = check_round_fits("fused_admm_round", N)
+    # The kernel reads the iterate, then writes its outputs over it.
     v, zk, ze, yk, ye = (t.clone() for t in (v, zk, ze, yk, ye))
     res = torch.empty((4, B), dtype=F32, device=dev)
-    sweep = torch.empty((N, 6, B), dtype=F32, device=dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_admm_round(
         p(Ci), p(Wp), p(tp), p(lbk), p(ubk), p(lbe), p(ube), p(rk), p(re),
-        p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res),
-        p(sweep), N, B, int(iters), float(alpha), float(1 - alpha),
-        float(sigma), float(geom[0]), float(geom[1]), kernels.stream_ptr(dev))
+        p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res), N, B,
+        int(iters), smem, float(alpha), float(1 - alpha), float(sigma),
+        float(geom[0]), float(geom[1]), kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
     kernels.launches["fused_admm_round"] += 1
     return v, zk, ze, yk, ye, res
@@ -213,7 +251,8 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
     """``iters`` ADMM iterations of block-banded QPs in one launch (K3).
     Lane-major float32: Ci/Wp (N, nb, nb, B), ac/ap (N, r, nb, B),
     q/v (N, nb, B), lb/ub/rho/z/y (N, r, B); (nb, r) in {(4, 3), (3, 3)}.
-    Returns (v, z, y)."""
+    Returns (v, z, y). On CUDA tensors N is at most 256
+    (:func:`check_round_fits`)."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
         return structured_round_plain(Ci, Wp, ac, ap, q, lb, ub, rho, v, z,
@@ -230,13 +269,13 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
                 z=z, y=y)
     for name, t in args.items():
         kernels.expect(name, t, shapes[name], F32, dev)
+    smem = check_round_fits("fused_structured_round", N, nb, r)
     v, z, y = v.clone(), z.clone(), y.clone()
-    sweep = torch.empty((N, nb, B), dtype=F32, device=dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_structured_round(
         p(Ci), p(Wp), p(ac), p(ap), p(q), p(lb), p(ub), p(rho), p(v), p(z),
-        p(y), p(sweep), N, nb, r, B, int(iters), float(alpha),
-        float(1 - alpha), float(sigma), kernels.stream_ptr(dev))
+        p(y), N, nb, r, B, int(iters), smem, float(alpha), float(1 - alpha),
+        float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_structured_round")
     kernels.launches["fused_structured_round"] += 1
     return v, z, y
