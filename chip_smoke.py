@@ -14,7 +14,10 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    on those very tensors, on the card, with the stated tolerance (K4's
    parents and alive flags exactly), timing both with CUDA events (``ms``:
    the device's time for one call, the stream held busy while the host
-   issues it; ``call_ms``: the same call as the host issues it);
+   issues it; ``call_ms``: the same call as the host issues it), with
+   ``ns_per_chain_step`` over each kernel's dependent steps; then K1 on a
+   zero-pivot input (the pivot floor) and K4 on a tie-heavy lattice (the
+   first-argmin rule), at the main path's shapes;
 3. drives the main path: ``solve_batch`` on the 256-scenario adversarial
    batch at the default ``PlannerConfig`` on ``cuda``, with every launch
    counter set to 0 just before and read just after; it fails unless every
@@ -125,8 +128,11 @@ def work(name: str, args) -> tuple[int, int]:
     each input read once, each output written once."""
     f = 4
     if name == "fused_factor":
+        # D's lower triangle, Off_1 .. Off_{N-1} (Off_0 = 0 by contract);
+        # Cinv and W written in full
         n, nb, _, b = args[0].shape
-        return 4 * n * nb * nb * b * f, n * b * _factor_flops(nb)
+        ins = n * nb * (nb + 1) // 2 + (n - 1) * nb * nb
+        return (ins + 2 * n * nb * nb) * b * f, n * b * _factor_flops(nb)
     if name == "fused_admm_round":
         ci, iters = args[1], args[17]
         n, nb, _, b = ci.shape
@@ -160,11 +166,14 @@ def work(name: str, args) -> tuple[int, int]:
 ITERS_ARG = {"fused_admm_round": 17, "fused_structured_round": 11}
 
 
-def chain_steps(name: str, args) -> int | None:
-    """Dependent sweep steps of one K2/K3 launch (2 sweeps x N knots x
-    iters): the chain that bounds the one-block-per-scenario design."""
-    if name not in ITERS_ARG:
-        return None
+def chain_steps(name: str, args) -> int:
+    """Dependent steps of one launch, the chain that bounds each design:
+    K1's N knots, K2/K3's sweep steps (2 sweeps x N knots x iters), K4's
+    L-1 layers."""
+    if name == "fused_factor":
+        return args[0].shape[0]
+    if name == "dp_forward":
+        return args[0].shape[1]
     n = args[1 if name == "fused_admm_round" else 0].shape[0]
     return 2 * n * args[ITERS_ARG[name]]
 
@@ -298,11 +307,11 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
         plain_ms = cuda_time_ms(lambda: plain(*args))
         b_ms, b_by = bound_ms(name, args)
         steps = chain_steps(name, args)
-        chain = {}
-        if steps:
+        chain = dict(chain_steps=steps, ns_per_chain_step=ms * 1e6 / steps)
+        if name in ITERS_ARG:
             args0 = no_iters(name, args)
             ms0 = cuda_time_ms(lambda: wrapper(*args0))
-            chain = dict(chain_steps=steps, ms_no_iters=ms0,
+            chain.update(ms_no_iters=ms0,
                          ns_per_chain_step=(ms - ms0) * 1e6 / steps)
         shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
         line = dict(phase="kernel", name=name, shape=shape, **cmp, ms=ms,
@@ -319,7 +328,75 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
     missing = [n for n in KERNELS if n not in primary]
     if missing:
         raise AssertionError(f"the main path gave no input to {missing}")
+    for name, shape, args in edge_cases(captured):
+        _, _, wrapper, plain = KERNELS[name]
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        cmp = compare(name, got, want)
+        emit(dict(phase="kernel", name=name, shape=shape, **cmp))
+        if not cmp["within_tol"] or not cmp["exact_int_outputs"]:
+            raise AssertionError(f"{name} [{shape}] disagrees with its plain "
+                                 f"version: {cmp}")
+        if name == "fused_factor" and not all(
+                bool(torch.isfinite(t[..., 0]).all()) for t in got):
+            raise AssertionError("fused_factor: the pivot floor did not "
+                                 "keep the zero-pivot scenario finite")
+        worst[name] = max(worst[name], cmp["max_abs_err"])
     return primary, worst
+
+
+def zero_pivot(diag, offp, b: int = 0):
+    """K1's pivot-floor case: scenario b's D_0 with row and column 0 set to
+    zero, and column 0 of its first off-block too. The pivot floor gives
+    Cinv_0[0][0] = 1e6 and keeps every entry finite; a plain Cholesky would
+    give NaN."""
+    diag, offp = diag.clone(), offp.clone()
+    diag[0, 0, :, b] = 0.0
+    diag[0, :, 0, b] = 0.0
+    offp[1, :, 0, b] = 0.0
+    return diag, offp
+
+
+def tie_lattice(B: int, lm1: int, K: int, seed: int = 0):
+    """A DP lattice (numpy float32: dir_all, base_all, h_in, cost0, dir0)
+    where the first-argmin rule decides most parents. Scenario b groups its
+    laterals in runs of g = 2 + b % 4; every direction and edge cost depends
+    only on the groups of its two ends and takes a few values, so whole runs
+    of kp tie exactly, within a slice of the kernel's split scan and across
+    slices. Some edges are 1e30, and reference and start headings lie
+    outside [-pi, pi] in part, so the wrap's fmodf path runs too."""
+    rng = np.random.default_rng(seed)
+    g = 2 + np.arange(B) % 4
+    grp = np.arange(K)[None, :] // g[:, None]                    # (B, K)
+    dir_t = rng.choice(np.float32([-2.5, -1.0, 0.0, 0.5, 1.5, 3.0]),
+                       (B, lm1, K, K))
+    base_t = rng.choice(np.float32([0.0, 0.5, 1.0, 1.5]), (B, lm1, K, K))
+    base_t[rng.random((B, lm1, K, K)) < 0.2] = 1e30
+    base_t[1 % B, lm1 // 2] = 1e30          # a scenario whose layers die
+    bi = np.arange(B)[:, None, None, None]
+    li = np.arange(lm1)[None, :, None, None]
+    rows, cols = grp[:, None, :, None], grp[:, None, None, :]
+    dir_all = dir_t[bi, li, rows, cols]
+    base_all = base_t[bi, li, rows, cols]
+    h_in = rng.choice(np.float32([-9.0, -1.0, 0.25, 2.0, 11.0]), (B, lm1))
+    cost0 = np.where(grp == 0, 0.0, 1e30).astype(np.float32)
+    dir0 = np.repeat(rng.choice(np.float32([-10.0, 0.0, 1.0, 12.0]),
+                                (B, 1)), K, axis=1)
+    return dir_all, base_all, h_in, cost0, dir0
+
+
+def edge_cases(captured: dict):
+    """Inputs the main path rarely gives, at its shapes: K1 on the
+    zero-pivot input, K4 on a tie-heavy lattice. Yields (name, shape,
+    args)."""
+    diag, offp = captured[("fused_factor", "nb=6")]
+    yield "fused_factor", "nb=6,zero_pivot", zero_pivot(diag, offp)
+    dp_args = captured[("dp_forward", "main")]
+    B, lm1, _, K = dp_args[0].shape
+    yield "dp_forward", "ties", tuple(
+        torch.as_tensor(a, device=dp_args[0].device)
+        for a in tie_lattice(B, lm1, K)) + (dp_args[5],)
 
 
 # ------------------------------- main path -----------------------------------

@@ -5,8 +5,12 @@ The CUDA kernels themselves run only on the GPU; ``chip_smoke.py`` holds each
 one against the plain version tested here. On CPU tensors every wrapper runs
 its plain version, so calling the wrapper here exercises that dispatch too.
 Inputs are the chicane path QPs of ``tests/test_fused_rounds.py`` at N = 24,
-small block-banded smoothing QPs, and the randomized DP lattice of
-``tests/test_corridor.py`` (dead layers, infinite edges).
+small block-banded smoothing QPs (also at the top of the adaptive-rho clamp,
+and with a zero pivot, where K1's pivot floor decides), the randomized DP
+lattice of ``tests/test_corridor.py`` (dead layers, infinite edges) and
+``chip_smoke.tie_lattice`` (exact ties). Where a CUDA kernel computes in
+another order than its plain version, a model of its order is held here
+against the JAX package and a float64 or plain reference.
 """
 
 import jax
@@ -25,6 +29,7 @@ from tpu_pathopt.smoothing.tension2 import build_tension2_structured
 from tpu_pathopt.solver import assembly as jassembly
 from tpu_pathopt.solver import fused_rounds as jfused
 from tpu_pathopt_torch import corridor, kernels
+from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.solver import fused_rounds
 
 # K1 as tests/test_fused_rounds.py holds the factor kernel; K2/K3 as it holds
@@ -138,6 +143,149 @@ def test_k1_factor_plain_matches_pallas_and_btridiag(case):
     assert_close(fused_rounds.unlane(ci), ci_x, FACTOR_TOL)
     assert_close(fused_rounds.unlane(wp)[:, 1:], w_x, FACTOR_TOL)
     assert not torch.any(wp[0])
+
+
+def floor_blocks(case):
+    """Float32 K1 inputs (diag, offp), batch-last, on which the Pallas
+    kernel's pivot floor sqrt(max(d, 1e-12)) decides the result:
+    - "tension2_rho1e6": the TENSION2 test blocks at the top of the
+      adaptive-rho clamp, not positive definite in float32, where part of
+      the factor is NaN;
+    - "zero_pivot": the path-QP blocks at rho_bar 0.1 with row and column 0
+      of scenario 1's D_0 set to zero, and column 0 of its first off-block,
+      where the floored pivot keeps every entry finite."""
+    if case == "tension2_rho1e6":
+        diag, off = normal_blocks64("tension2_nb4", 1e6)
+    else:
+        diag, off = normal_blocks64("path_nb6", 0.1)
+        diag[1, 0, 0, :] = 0.0
+        diag[1, 0, :, 0] = 0.0
+        off[1, 0, :, 0] = 0.0
+    diag, off = diag.float(), off.float()
+    offp = torch.cat([torch.zeros_like(diag[:, :1]), off], 1)
+    return fused_rounds.lane(diag), fused_rounds.lane(offp)
+
+
+@pytest.mark.parametrize("case", ["tension2_rho1e6", "zero_pivot"])
+def test_k1_factor_plain_keeps_the_pivot_floor(case):
+    """K1's plain version computes the Pallas kernel's function where a
+    block is not positive definite: the same NaN pattern (cholesky_ex would
+    make a whole block NaN) and FACTOR_TOL on every other entry."""
+    diag, offp = floor_blocks(case)
+    want = jfused.fused_factor(jnp.asarray(diag.numpy()),
+                               jnp.asarray(offp.numpy()), interpret=True)
+    got = fused_rounds.fused_factor(diag, offp)
+    for g, w in zip(got, want):
+        w = torch.as_tensor(np.array(w))
+        np.testing.assert_array_equal(torch.isnan(g).numpy(),
+                                      torch.isnan(w).numpy())
+        fin = torch.isfinite(w)
+        assert_close(g[fin], w[fin].numpy(), FACTOR_TOL)
+    if case == "zero_pivot":
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        assert float(got[0][0, 0, 0, 1]) == pytest.approx(1e6, rel=1e-6)
+        C, _ = btridiag.factor(fused_rounds.unlane(diag),
+                               fused_rounds.unlane(offp)[:, 1:])
+        assert bool(torch.isnan(C[1]).all())
+    else:
+        assert int(torch.isnan(got[0]).sum()) > 0
+
+
+def round32(exact):
+    """The float32 nearest a Fraction, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(exact))
+    cands = [f, np.nextafter(f, np.float32(np.inf)),
+             np.nextafter(f, np.float32(-np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - exact),
+                                     int(np.array(c).view(np.uint32)) & 1))
+
+
+def test_k1_fma_rounds_once():
+    """fused_rounds.fma is x * y + acc rounded once to float32, as the
+    kernels' fmaf and XLA's contracted multiply-adds round it, against
+    exact rational arithmetic: on random inputs, and on inputs where the
+    float64 sum lands on a float32 midpoint that the exact sum lies just
+    below or above, so that rounding it to float32 again goes the wrong
+    way: x y = +-2^-24 (1 - i^2 2^-46) added to a float32 with an odd last
+    bit."""
+    from fractions import Fraction
+    i = np.arange(1, 301, dtype=np.float64)
+    x1 = np.float32(2.0 ** -24) * (1 + i * 2.0 ** -23)
+    y1 = 1 - i * 2.0 ** -23
+    a1 = np.float32(1 + 2.0 ** -23)
+    rng = np.random.default_rng(0)
+    x = np.concatenate([x1, -x1, rng.standard_normal(300) * 1e-3])
+    y = np.concatenate([y1, y1, rng.standard_normal(300)])
+    a = np.concatenate([np.full(300, a1), np.full(300, a1 + 2.0 ** -22),
+                        rng.standard_normal(300)])
+    x, y, a = (v.astype(np.float32) for v in (x, y, a))
+    got = fused_rounds.fma(t(x), t(y), t(a)).numpy()
+    twice = (x.astype(np.float64) * y + a).astype(np.float32)
+    assert not np.any(got[:600] == twice[:600])
+    for i in range(x.size):
+        exact = Fraction(float(x[i])) * Fraction(float(y[i])) \
+            + Fraction(float(a[i]))
+        assert got[i] == round32(exact), i
+
+
+def kernel_order_factor(diag, offp):
+    """K1 in the order of its CUDA kernel (csrc/fused_factor.cu), float32,
+    batch-last. The sums are factor_plain's (fused_rounds.fma_sum; the
+    kernel skips the zero products of the triangular Cinv, which leaves a
+    sum of finite terms unchanged). The reciprocals differ: the pivot's is
+    one rounding of 1/sqrt (the kernel's rsqrtf is within 2 ulp of it) and
+    the inverse multiplies by it in place of dividing by the Cholesky
+    diagonal."""
+    fma_sum = fused_rounds.fma_sum
+    n, nb, _, _ = diag.shape
+    floor = torch.tensor(fused_rounds.PIVOT_FLOOR, dtype=diag.dtype)
+    cinv, wp = torch.empty_like(diag), torch.empty_like(diag)
+    cp = torch.zeros_like(diag[0])
+    for i in range(n):
+        O = offp[i]
+        W = fma_sum([(O[:, None, j], cp[None, :, j]) for j in range(nb)])
+        S = diag[i] - fma_sum([(W[:, None, j], W[None, :, j])
+                               for j in range(nb)])
+        C, inv = torch.zeros_like(S), torch.zeros_like(S[0])
+        for j in range(nb):
+            e = S[j:, j]
+            for k in range(j):
+                e = fused_rounds.fma(-C[j:, k], C[j, k], e)
+            p = torch.maximum(e[0], floor).double()
+            inv[j] = (1.0 / torch.sqrt(p)).float()
+            C[j + 1:, j] = e[1:] * inv[j]
+        cp = torch.zeros_like(S)
+        for j in range(nb):
+            cp[j, j] = inv[j]
+            for a in range(j + 1, nb):
+                acc = fma_sum([(C[a, k], cp[k, j]) for k in range(j, a)])
+                cp[a, j] = acc * -inv[a]
+        wp[i], cinv[i] = W, cp
+    return cinv, wp
+
+
+@pytest.mark.parametrize("rho_bar", [1e-6, 0.1])
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+def test_k1_kernel_order_matches_pallas_and_float64(case, rho_bar):
+    """The CUDA kernel's order and reciprocals (kernel_order_factor) agree
+    with the Pallas kernel in interpret mode and with a float64
+    factorization of the same float32 blocks, at FACTOR_TOL, at the three
+    block sizes across the adaptive-rho range where the blocks are
+    positive definite."""
+    diag, off = normal_blocks64(case, rho_bar)
+    diag, off = diag.float(), off.float()
+    offp = torch.cat([torch.zeros_like(diag[:, :1]), off], 1)
+    dl, ol = fused_rounds.lane(diag), fused_rounds.lane(offp)
+    ci, wp = kernel_order_factor(dl, ol)
+    ci_k, wp_k = jfused.fused_factor(jnp.asarray(dl.numpy()),
+                                     jnp.asarray(ol.numpy()), interpret=True)
+    assert_close(ci, ci_k, FACTOR_TOL)
+    assert_close(wp, wp_k, FACTOR_TOL)
+    C, W = btridiag.factor(diag.double(), off.double())
+    ci64, w64 = btridiag.inv_factors(C, W)
+    assert_close(fused_rounds.unlane(ci), ci64.numpy(), FACTOR_TOL)
+    assert_close(fused_rounds.unlane(wp)[:, 1:], w64.numpy(), FACTOR_TOL)
 
 
 # --------------------------------- K2 ---------------------------------------
@@ -306,7 +454,6 @@ def test_kernel_sweep_order_matches_btridiag_and_float64(case, rho_bar):
     for a float32 factorization (K1's concern, not the sweep's), and its
     float32 factors define a visibly different matrix, so the oracle solves
     the system those factors define."""
-    from tpu_pathopt_torch.qp import btridiag
     diag, off = normal_blocks64(case, rho_bar)
     C, W = btridiag.factor(diag, off)
     Ci, W = btridiag.inv_factors(C, W)
@@ -358,14 +505,29 @@ def random_lattice(seed=7, B=5, lm1=9, K=11):
     return dir_all, base, h_in, cost0, dir0
 
 
-@pytest.mark.parametrize("seed", [7, 8])
+def lattice(case):
+    """random_lattice(seed) for an int case; "ties": chip_smoke's tie-heavy
+    lattice at the same small shape, where runs of kp tie exactly and the
+    first-index rule decides the parents."""
+    if case == "ties":
+        from chip_smoke import tie_lattice
+        return tie_lattice(5, 9, 11, seed=3)
+    return random_lattice(case)
+
+
+def jax_scan(arrs, w1):
+    j = tuple(jnp.asarray(a) for a in arrs)
+    return jax.vmap(lambda d, b, h, c0, d0: jcorridor._dp_forward_scan(
+        d, b, h, c0, d0, w1))(*j)
+
+
+@pytest.mark.parametrize("seed", [7, 8, "ties"])
 def test_k4_dp_forward_plain_matches_scan_and_pallas(seed):
     w1 = JaxConfig().dp_weight_angle_change
-    arrs = random_lattice(seed)
-    j = tuple(jnp.asarray(a) for a in arrs)
-    scan = jax.vmap(lambda d, b, h, c0, d0: jcorridor._dp_forward_scan(
-        d, b, h, c0, d0, w1))(*j)
-    pallas = jcorridor._dp_forward_pallas(*j, w1, interpret=True)
+    arrs = lattice(seed)
+    scan = jax_scan(arrs, w1)
+    pallas = jcorridor._dp_forward_pallas(*(jnp.asarray(a) for a in arrs),
+                                          w1, interpret=True)
     got = corridor.dp_forward(*(t(a) for a in arrs), w1)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     assert got[2].dtype == torch.bool
@@ -375,6 +537,54 @@ def test_k4_dp_forward_plain_matches_scan_and_pallas(seed):
                                    atol=1e-5, rtol=0)
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def split_first_argmin(total, P):
+    """K4's split scan (csrc/dp_forward.cu) on total (B, Kp, K): P slices of
+    ceil(Kp / P) parents, each scanned in order with a strict `<` from its
+    first kp, then the slices' minima combined in slice order with a strict
+    `<`."""
+    Kp = total.shape[1]
+    size = -(-Kp // P)
+    best = best_prev = None
+    for kp0 in range(0, Kp, size):
+        sb = total[:, kp0]
+        sp = torch.full_like(sb, kp0, dtype=torch.int32)
+        for kp in range(kp0 + 1, min(Kp, kp0 + size)):
+            take = total[:, kp] < sb
+            sb = torch.where(take, total[:, kp], sb)
+            sp = torch.where(take, kp, sp)
+        if best is None:
+            best, best_prev = sb, sp
+        else:
+            take = sb < best
+            best = torch.where(take, sb, best)
+            best_prev = torch.where(take, sp, best_prev)
+    return best, best_prev
+
+
+@pytest.mark.parametrize("P", [11, 7, 1, 3, 4])
+@pytest.mark.parametrize("case", [7, "ties"])
+def test_k4_split_scan_matches_plain_and_scan(case, P, monkeypatch):
+    """The kernel's P-way split of the kp scan gives the plain version's
+    first argmin bit for bit (costs, parents, alive flags), and the JAX
+    scan's parents and alive flags, on the random lattice and on the
+    tie-heavy one. At K = 11 the launcher takes P = 11 (one kp per slice;
+    7 at the main path's K = 35); the others split the 11 unevenly."""
+    w1 = JaxConfig().dp_weight_angle_change
+    arrs = tuple(t(a) for a in lattice(case))
+    want = corridor.dp_forward_plain(*arrs, w1)
+    monkeypatch.setattr(corridor, "first_argmin",
+                        lambda total: split_first_argmin(total, P))
+    got = corridor.dp_forward_plain(*arrs, w1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    scan = jax_scan(lattice(case), w1)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(scan[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(scan[2]))
+    if case == "ties":   # each parent is the first kp of its run of ties
+        for b in range(got[1].shape[0]):
+            assert bool((got[1][b] % (2 + b % 4) == 0).all())
 
 
 def test_k4_wrap_matches_jnp_mod_bit_for_bit():

@@ -7,12 +7,14 @@ follow ``tests/test_parity_gridmap.py:134-207``: segmentation 1e-4, the
 smoothing QP 2e-2, the corridor exact up to single 0.2 m march steps on a
 few layers, post-smoothing 1e-3 (here 5e-3: two float32 ADMM solves at the
 2e-3 tolerance, where the gridmap test compares one against a float64
-oracle), the reference 2e-3 in heading and 5e-4 in curvature, collision
+oracle; against the JAX stage's fused path, as the port's default path is
+the fused one), the reference 2e-3 in heading and 5e-4 in curvature, collision
 bounds exact up to single 0.05 m march steps, and both path-QP passes
 converged with the same flags and iteration counts within one interval.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -115,12 +117,32 @@ def test_stage_corridor(jax_stages):
         assert np.mean(d < 1e-3) >= 0.8, name
 
 
-def test_stage_post_smooth(jax_stages):
+def test_stage_post_smooth(jax_stages, monkeypatch):
+    """Held against the JAX stage on its fused path, the one it takes on a
+    TPU: the Pallas factor and round kernels in interpret mode (forced as
+    tests/test_pipeline.py forces the fused path on the CPU). The port's
+    default path is the fused one, whose plain K1 computes the Pallas
+    kernel's factor (pivot floor, unrolled Cholesky-Crout). On the CPU the
+    JAX stage otherwise runs its XLA factor, and its two paths differ by
+    6e-3 on one lane of this batch: two float32 ADMM solves at the 2e-3
+    tolerance."""
+    from tpu_pathopt.qp import structured as jstructured
+    from tpu_pathopt.solver import fused_rounds as jfused
     j, _, _ = jax_stages
+    for name in ("fused_factor", "fused_structured_round"):
+        monkeypatch.setattr(jfused, name, functools.partial(
+            getattr(jfused, name), interpret=True))
+    monkeypatch.setattr(jstructured.jax, "default_backend", lambda: "tpu")
+    jax.clear_caches()      # solve_structured_batched traced on the XLA path
+    try:
+        want = jax.tree_util.tree_map(np.asarray, jpipe.stage_post_smooth(
+            j["cor"], JCFG, JCFG.qp_settings()))
+    finally:
+        jax.clear_caches()  # keep the fused trace out of later tests
     cor = convert.corridor(fields(j["cor"]), "cpu")
     l_post, ok_post = pipeline.stage_post_smooth(cor, CFG, CFG.qp_settings())
-    np.testing.assert_array_equal(ok_post.numpy(), j["post"][1])
-    assert maxdiff(l_post, j["post"][0]) < 5e-3
+    np.testing.assert_array_equal(ok_post.numpy(), want[1])
+    assert maxdiff(l_post, want[0]) < 5e-3
 
 
 def test_stage_geometry(jax_stages):

@@ -168,6 +168,18 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
 
 # --------------------------------- K4 ---------------------------------------
 
+def first_argmin(total):
+    """(min over kp, the smallest kp attaining it) of total (B, Kp, K), the
+    kp index int32."""
+    Kp = total.shape[1]
+    kp_iota = torch.arange(Kp, dtype=torch.int32,
+                           device=total.device)[None, :, None]
+    best_cost = torch.amin(total, dim=1)                         # (B, K)
+    best_prev = torch.amin(torch.where(total == best_cost[:, None],
+                                       kp_iota, Kp), dim=1)
+    return best_cost, best_prev
+
+
 def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
     """K4's plain version: the DP forward pass as a loop over layers.
 
@@ -177,7 +189,6 @@ def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
     operation, so the CUDA kernel reproduces it bit for bit."""
     B, lm1, Kp, _ = dir_all.shape
     dev = dir_all.device
-    kp_iota = torch.arange(Kp, dtype=torch.int32, device=dev)[None, :, None]
     # A tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the correctly rounded quotient.
     half_pi = torch.tensor(math.pi / 2, dtype=torch.float32, device=dev)
@@ -189,9 +200,7 @@ def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
         t1 = torch.abs(constrain_angle(direction - dir_p[:, :, None])) \
             / half_pi * w1
         total = cost_p[:, :, None] + t1 + base_all[:, layer]
-        best_cost = torch.amin(total, dim=1)                     # (B, K)
-        best_prev = torch.amin(torch.where(total == best_cost[:, None],
-                                           kp_iota, Kp), dim=1)
+        best_cost, best_prev = first_argmin(total)
         best_dir = torch.gather(direction, 1,
                                 best_prev[:, None].long())[:, 0]
         alive = alive & torch.any(best_cost < _INF, dim=-1)
@@ -208,14 +217,17 @@ def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
 def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
     """The DP forward pass (K4, ``csrc/dp_forward.cu``), same arguments and
     results as :func:`dp_forward_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream."""
+    version; CUDA tensors launch the kernel on the current stream. The
+    launcher splits each lateral's parent scan over the block's threads and
+    refuses a lattice of more than 119 laterals, whose block would not fit
+    in shared memory."""
     dev = kernels.kernel_device(dir_all)
     if dev is None:
         return dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1)
     B, lm1, Kp, K = dir_all.shape
-    if Kp != K or K > 1024:
+    if Kp != K:
         raise ValueError(f"dp_forward: lattice ({Kp}, {K}), the kernel takes "
-                         "a square lattice of at most 1024 laterals")
+                         "a square lattice")
     f32 = torch.float32
     for name, t, shape in (("dir_all", dir_all, (B, lm1, K, K)),
                            ("base_all", base_all, (B, lm1, K, K)),

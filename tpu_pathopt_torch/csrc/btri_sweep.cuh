@@ -34,8 +34,6 @@ namespace pathopt {
 // compiler may give each thread up to 255 registers (at 512, 128).
 constexpr int kMaxRoundThreads = 256;
 constexpr int kMaxRoundWarps = kMaxRoundThreads / 32;
-// Above this a CTA cannot be launched on the H100 (227 KB).
-constexpr int kMaxSmemBytes = 232448;
 
 __host__ __device__ constexpr int tri_size(int nb) { return nb * (nb + 1) / 2; }
 

@@ -2,8 +2,11 @@
 (port of ``tpu_pathopt.solver.fused_rounds``).
 
 - K1 :func:`fused_factor` (``csrc/fused_factor.cu``): block-tridiagonal
-  Cholesky + explicit block inverse. Plain version: ``btridiag.factor`` +
-  ``btridiag.inv_factors``.
+  Cholesky + explicit block inverse with the Pallas kernel's pivot floor.
+  Plain version: :func:`factor_plain`, the Pallas kernel's unrolled
+  Cholesky-Crout in its order (``btridiag.factor`` + ``inv_factors`` is
+  the counterpart of the JAX ``btridiag``, used when ``fused_rounds`` is
+  off, and makes a block that is not positive definite NaN).
 - K2 :func:`fused_admm_round` (``csrc/fused_admm_round.cu``): ``iters``
   ADMM iterations of the lateral path QP plus its four residuals. Plain
   version: the plain path-QP step looped ``iters`` times.
@@ -12,12 +15,13 @@
   plain structured step looped ``iters`` times.
 
 The kernels' arrays are batch-last ("lane-major", e.g. (N, nb, nb, B)). K1
-gives each scenario one thread, so a warp's 32 scenarios read neighbouring
-floats; K2 and K3 give each scenario a thread block with one thread per
-knot and hold the whole round in its shared memory, which bounds N
-(:func:`round_smem_bytes`). A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches its kernel on the current stream or
-raises. There is no fallback between the two.
+gives each scenario a group of 8 lanes (nb 6) or 4 (nb 3, 4), one per
+block row, with 4 or 8 neighbouring scenarios in one warp; K2 and K3 give
+each scenario a thread block with one thread per knot and hold the whole
+round in its shared memory, which bounds N (:func:`round_smem_bytes`). A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel on the current stream or raises. There is no fallback
+between the two.
 """
 
 from __future__ import annotations
@@ -77,13 +81,101 @@ def check_round_fits(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
 
 # --------------------------------- K1 ---------------------------------------
 
+PIVOT_FLOOR = 1e-12
+_LOW29 = (1 << 29) - 1       # the float64 mantissa bits below float32's
+_HALF29 = 1 << 28            # ... of a float32 midpoint
+_INF64 = float("inf")
+
+
+def fma(x, y, acc):
+    """x * y + acc for float32 tensors, rounded once to float32, as a fused
+    multiply-add rounds it (float32's normal range).
+
+    The product of two float32 numbers is exact in float64, so s = acc + x y
+    in float64 is the exact sum rounded once. Rounding s to float32 gives
+    the exact sum's rounding, except where s fell on a float32 midpoint
+    while the exact sum lies beside it: there s moves one float64 step
+    toward the exact sum (round to odd), the rest of the sum coming from
+    the error-free two-sum."""
+    a = acc.double()
+    p = x.double() * y.double()
+    s = a + p
+    tie = (s.view(torch.int64) & _LOW29) == _HALF29
+    if bool(tie.any()):
+        pa = s - a
+        e = (a - (s - pa)) + (p - pa)
+        toward = torch.nextafter(s, torch.copysign(
+            torch.tensor(_INF64, dtype=s.dtype, device=s.device), e))
+        s = torch.where(tie & (e != 0), toward, s)
+    return s.float()
+
+
+def fma_sum(terms):
+    """sum_j x_j y_j over a list of (x_j, y_j) tensors, rounded as XLA's
+    CPU backend rounds the Pallas kernel's `acc = x_0 y_0; acc = acc +
+    x_j y_j ...`, contracting multiply-adds: the first two products as
+    fma(x_0, y_0, x_1 y_1), then one :func:`fma` per further term."""
+    (x0, y0), rest = terms[0], terms[1:]
+    if not rest:
+        return x0 * y0
+    (x1, y1), rest = rest[0], rest[1:]
+    acc = fma(x0, y0, x1 * y1)
+    for x, y in rest:
+        acc = fma(x, y, acc)
+    return acc
+
+
 def factor_plain(diag, offp):
     """K1's plain version, same layout: diag/offp (N, nb, nb, B), offp[0] = 0
-    -> (Cinv, Wp) (N, nb, nb, B) with Wp[0] = 0."""
-    C, W = btridiag.factor(unlane(diag), unlane(offp)[:, 1:])
-    Cinv, W = btridiag.inv_factors(C, W)
-    Wp = torch.cat([torch.zeros_like(W[:, :1]), W], dim=1)
-    return lane(Cinv), lane(Wp)
+    -> (Cinv, Wp) (N, nb, nb, B) with Wp[0] = 0.
+
+    It computes what the Pallas kernel computes, knot by knot: W_i = Off_i
+    Cinv_{i-1}^T, S_i = D_i - W_i W_i^T, an unrolled Cholesky-Crout with the
+    pivot sqrt(max(d, 1e-12)) (NaN propagates, as ``jnp.maximum`` does), and
+    the forward-substitution inverse. Every sum runs in the Pallas kernel's
+    order with elementwise operations (:func:`fma_sum`), vectorised over the
+    batch and over the rows or columns that do not depend on each other, so
+    the two agree to rounding on any block, positive definite or not
+    (``btridiag.factor`` instead turns a block that is not into NaN)."""
+    n, nb, _, B = diag.shape
+    floor = torch.tensor(PIVOT_FLOOR, dtype=diag.dtype, device=diag.device)
+    cinv = torch.empty_like(diag)
+    wp = torch.empty_like(diag)
+    ci_prev = torch.zeros_like(diag[0])
+    for i in range(n):
+        # W[a][b] = sum_j O[a][j] Cp[b][j]; S = D - W W^T
+        O, D = offp[i], diag[i]
+        W = fma_sum([(O[:, None, j], ci_prev[None, :, j]) for j in range(nb)])
+        S = D - fma_sum([(W[:, None, j], W[None, :, j]) for j in range(nb)])
+        wp[i] = W
+        # Cholesky-Crout, column j: rows j..nb-1 at once; row j is the pivot.
+        C = torch.zeros_like(D)
+        for j in range(nb):
+            e = S[j:, j]
+            for k in range(j):
+                e = fma(-C[j:, k], C[j, k], e)
+            cjj = torch.sqrt(torch.maximum(e[0], floor))
+            C[j, j] = cjj
+            C[j + 1:, j] = e[1:] * (1.0 / cjj)
+        # Forward-substitution inverse, row a with its columns j < a at once:
+        # Ci[a][j] = -(sum_{k=j}^{a-1} C[a][k] Ci[k][j]) / C[a][a], the sum
+        # for column j starting at k = j (fma_sum's order, column by column).
+        Ci = torch.zeros_like(D)
+        for a in range(nb):
+            Ci[a, a] = 1.0 / C[a, a]
+            if not a:
+                continue
+            dg = torch.diagonal(Ci, 0, 0, 1).movedim(-1, 0)[:a]
+            acc = C[a, :a] * dg
+            if a > 1:
+                sub = torch.diagonal(Ci, -1, 0, 1).movedim(-1, 0)[:a - 1]
+                acc[:a - 1] = fma(C[a, :a - 1], dg[:a - 1], C[a, 1:a] * sub)
+            for k in range(2, a):
+                acc[:k - 1] = fma(C[a, k], Ci[k, :k - 1], acc[:k - 1])
+            Ci[a, :a] = -acc / C[a, a]
+        cinv[i] = Ci
+        ci_prev = Ci
+    return cinv, wp
 
 
 def fused_factor(diag, offp):
