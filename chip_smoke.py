@@ -8,24 +8,42 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions) and the build (nvcc commands, seconds, registers and spills);
-2. runs ``pipeline.solve_batch`` once on the 256-scenario adversarial batch
-   while recording the first arguments each kernel wrapper is given at each
-   of its shapes, and holds every kernel against its plain PyTorch version
-   on those very tensors, on the card, with the stated tolerance (K4's
-   parents and alive flags exactly), timing both with CUDA events (``ms``:
-   the device's time for one call, the stream held busy while the host
-   issues it; ``call_ms``: the same call as the host issues it), with
-   ``ns_per_chain_step`` over each kernel's dependent steps; then K1 on a
-   zero-pivot input (the pivot floor) and K4 on a tie-heavy lattice (the
-   first-argmin rule), at the main path's shapes;
-3. drives the main path: ``solve_batch`` on the 256-scenario adversarial
-   batch at the default ``PlannerConfig`` on ``cuda``, with every launch
-   counter set to 0 just before and read just after; it fails unless every
-   kernel launched, every scenario succeeded and every output is finite;
-4. solves the golden fixture's 8 scenarios on the card and holds the result
-   against the JAX package's stored result
-   (``tpu_pathopt_torch/testdata/jax_adversarial_b8.npz``);
-5. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
+2. ``kernel``: runs ``pipeline.solve_batch`` on the 256-scenario
+   adversarial batch at the default config and under TENSION (K1 at nb 9,
+   K3 at (9, 9)), and one warm replanning cycle (K2 under the key
+   ``warm``, seeded with each lane's rho from the previous solve), while
+   recording the first arguments each kernel wrapper is given at each of
+   its shapes, and holds every kernel against its plain PyTorch version on
+   those very tensors, on the card, with the stated tolerance (K4's parents
+   and alive flags exactly), timing both with CUDA events (``ms``: the
+   device's time for one call, the stream held busy while the host issues
+   it; ``call_ms``: the same call as the host issues it), with
+   ``ns_per_chain_step`` over each kernel's dependent steps (K3's TENSION
+   round is compared and timed there but not held: see READING_ONLY); then
+   K1 on a zero-pivot input (the pivot floor) at nb 6 and 9, K3 at (9, 9)
+   on conditioned TENSION QPs (``conditioned_tension_round``), where it
+   must also fail on inputs faulted in the d rows, and K4 on a tie-heavy
+   lattice (the first-argmin rule); and requires that K1 and K3 given CUDA
+   tensors at a block shape they are not built for raise ValueError
+   without a launch;
+3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
+   the default ``PlannerConfig`` on ``cuda``, with every launch counter set
+   to 0 just before and read just after; it fails unless every kernel
+   launched, every scenario succeeded and every output is finite;
+4. ``variants``: the same batch under TENSION + DP and under TENSION2 + A*,
+   counted the same way (K1 at nb 9 and K3 at (9, 9) must launch under
+   TENSION, K4 must not under A*), timed by stage over 3 runs, with the
+   number of succeeded paths that are collision free
+   (``collision.py``);
+5. ``replan``: ``replan.replan_stream`` on the batch, 6 cycles warm and 6
+   cold after a 1-cycle warm-up of each; every cycle must succeed and the
+   warm cycles take no more ADMM iterations than the cold; and the
+   ``solve_batch_profiled`` stage times of one solve;
+6. ``golden``: solves the golden fixtures' 8 scenarios on the card and
+   holds each result against the JAX package's stored one
+   (``tpu_pathopt_torch/testdata/``: the default, TENSION and A* configs
+   and the 3-cycle replanning stream);
+7. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs the main path once under
@@ -40,6 +58,7 @@ With no CUDA device it exits with code 2 at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,14 +68,23 @@ import time
 import numpy as np
 import torch
 
-from tpu_pathopt_torch import corridor, golden, kernels, pipeline, scenarios
+from tpu_pathopt_torch import (collision, corridor, golden, kernels, maps,
+                               pipeline, profiling, replan, scenarios)
 from tpu_pathopt_torch.config import PlannerConfig
+from tpu_pathopt_torch.qp import structured
+from tpu_pathopt_torch.smoothing.tension import build_tension_qp_blocks
 from tpu_pathopt_torch.solver import fused_rounds
+from tpu_pathopt_torch.torchutil import tree_map
 
 BATCH = 256
 REPS = 15          # timed calls per version (median), after WARMUP calls
 WARMUP = 3
 REPEATS = 3        # timed main-path runs (median); the first is counted
+SLOW_PLAIN_S = 0.1           # a plain version slower than this is timed
+SLOW_PLAIN_REPS = 3          # ... over this many calls, after one warm-up
+REPLAN_CYCLES = 6            # timed cycles of each replanning stream
+VARIANTS = {"tension": dict(smoothing_method="TENSION"),
+            "astar": dict(corridor_method="ASTAR")}
 HOLD_CYCLES = 4_000_000      # about 2 ms of device clock before a timed call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -90,6 +118,15 @@ PRIMARY = {"fused_factor": "nb=6", "fused_structured_round": "nb=4,r=3"}
 # K4's costs to 1e-5 (its parents and alive flags exactly).
 TOLERANCE = {"fused_factor": (2e-4, 2e-3), "fused_admm_round": (5e-3, 5e-3),
              "fused_structured_round": (5e-3, 5e-3), "dp_forward": (1e-5, 0.0)}
+# Main-path inputs that are compared and timed but not held: K3's TENSION
+# round. On a straight lane a lateral shift of the whole path costs the
+# TENSION QP almost nothing, so d and the coordinate tied to it form a soft
+# mode that float32 rounding in any other summation order moves by a few
+# 1e-2 m: on the golden batch the JAX package's own Pallas kernel differs
+# from the plain round by 0.023 and a CPU model of this kernel's order by
+# 0.062, beyond TOLERANCE (tests/test_torch_kernels.py). K3 at (9, 9) is
+# held at TOLERANCE on conditioned_tension_round instead.
+READING_ONLY = {("fused_structured_round", "nb=9,r=9")}
 
 
 def emit(obj):
@@ -194,12 +231,12 @@ def bound_ms(name: str, args) -> tuple[float, str]:
 
 # ------------------------- capture and comparison ----------------------------
 
-def _shape_key(name: str, args) -> str:
+def _shape_key(name: str, args, k2_key: str = "main") -> str:
     if name == "fused_factor":
         return f"nb={args[0].shape[1]}"
     if name == "fused_structured_round":
         return f"nb={args[0].shape[1]},r={args[2].shape[1]}"
-    return "main"
+    return k2_key if name == "fused_admm_round" else "main"
 
 
 def _clone(a):
@@ -207,9 +244,12 @@ def _clone(a):
 
 
 def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
-    """Run the main path once, recording the first positional arguments
-    (cloned) that each wrapper gets at each of its shapes."""
+    """Run the main path once, then TENSION once and one warm replanning
+    cycle, recording the first positional arguments (cloned) that each
+    wrapper gets at each of its shapes; K2's first call of the warm cycle
+    (pass 1, seeded from the previous solve) under the key "warm"."""
     seen: dict = {}
+    k2_key = ["main"]
     targets = [(fused_rounds, "fused_factor"),
                (fused_rounds, "fused_admm_round"),
                (fused_rounds, "fused_structured_round"),
@@ -218,7 +258,7 @@ def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
 
     def recorder(name, fn):
         def rec(*args, **kw):
-            key = (name, _shape_key(name, args))
+            key = (name, _shape_key(name, args, k2_key[0]))
             if key not in seen:
                 # keyword arguments (iters, alpha, sigma) go last, in order
                 seen[key] = tuple(_clone(a) for a in args) + tuple(kw.values())
@@ -229,14 +269,21 @@ def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
         for mod, name, fn in originals:
             setattr(mod, name, recorder(name, fn))
         pipeline.solve_batch(gm, scs, cfg, device=device)
+        pipeline.solve_batch(gm, scs, dataclasses.replace(
+            cfg, **VARIANTS["tension"]), device=device)
+        res, warm = pipeline.solve_batch_warm(gm, scs, cfg, device=device)
+        k2_key[0] = "warm"
+        pipeline.solve_batch_warm(gm, replan.advance_scenarios(scs, res, 1.0),
+                                  cfg, warm=warm, device=device)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     return seen
 
 
-def cuda_time_ms(fn, hold: bool = True) -> float:
-    """Median over REPS calls, after WARMUP calls, of each call's time
+def cuda_time_ms(fn, hold: bool = True, reps: int = REPS,
+                 warmup: int = WARMUP) -> float:
+    """Median over ``reps`` calls, after ``warmup`` calls, of each call's time
     between two CUDA events on the current stream. With ``hold`` the stream
     is first kept busy for HOLD_CYCLES (``torch.cuda._sleep``), so the
     host has enqueued the call before the device reaches the first event:
@@ -244,10 +291,10 @@ def cuda_time_ms(fn, hold: bool = True) -> float:
     wrapper's small copies), not the host's launch overhead, unless the host
     takes longer than the hold. Without it the interval also holds the
     host's time to issue the call."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if hold:
@@ -267,7 +314,7 @@ def _as_tuple(out):
 def compare(name: str, got, want) -> dict:
     """Max abs difference over every output, the same relative to each
     output's largest finite magnitude, and whether every element is within
-    the tolerance; K4's parents and alive flags must be equal."""
+    TOLERANCE; K4's parents and alive flags must be equal."""
     atol, rtol = TOLERANCE[name]
     max_abs = max_rel = 0.0
     worst = -np.inf
@@ -285,26 +332,35 @@ def compare(name: str, got, want) -> dict:
         finite = torch.isfinite(w)
         scale = float(w[finite].abs().max()) if bool(finite.any()) else 1.0
         max_rel = max(max_rel, float(d.max()) / max(scale, 1e-30))
-        worst = max(worst, float((d - (atol + rtol * w.abs())).max()))
+        worst = max(worst, float((d - atol - rtol * w.abs()).max()))
     return dict(max_abs_err=max_abs, max_rel_err=max_rel,
                 tol_atol=atol, tol_rtol=rtol, within_tol=worst <= 0.0,
                 exact_int_outputs=exact)
 
 
 def check_kernels(captured: dict) -> tuple[dict, dict]:
-    """Each kernel against its plain version on the captured tensors; one
-    line per (kernel, shape). Returns (the line of each kernel's primary
-    shape, each kernel's largest abs difference over all its shapes)."""
+    """Each kernel against its plain version on the captured tensors and on
+    edge_cases; one line per (kernel, shape). Returns (the line of each
+    kernel's primary shape, each kernel's largest abs difference over the
+    shapes it is held at)."""
     primary, worst = {}, {}
     for (name, shape), args in sorted(captured.items()):
         _, _, wrapper, plain = KERNELS[name]
         got = wrapper(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = plain(*args)
         torch.cuda.synchronize()
         cmp = compare(name, got, want)
+        held = (name, shape) not in READING_ONLY
         ms = cuda_time_ms(lambda: wrapper(*args))
         call_ms = cuda_time_ms(lambda: wrapper(*args), hold=False)
-        plain_ms = cuda_time_ms(lambda: plain(*args))
+        # The plain K1 (an FMA emulated in float64, many small launches a
+        # knot) takes a large share of a second: fewer calls for it.
+        slow = time.perf_counter() - t0 > SLOW_PLAIN_S
+        plain_reps = SLOW_PLAIN_REPS if slow else REPS
+        plain_ms = cuda_time_ms(lambda: plain(*args), reps=plain_reps,
+                                warmup=1 if slow else WARMUP)
         b_ms, b_by = bound_ms(name, args)
         steps = chain_steps(name, args)
         chain = dict(chain_steps=steps, ns_per_chain_step=ms * 1e6 / steps)
@@ -314,16 +370,18 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
             chain.update(ms_no_iters=ms0,
                          ns_per_chain_step=(ms - ms0) * 1e6 / steps)
         shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
-        line = dict(phase="kernel", name=name, shape=shape, **cmp, ms=ms,
-                    call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, **chain, input_shapes=shapes)
+        line = dict(phase="kernel", name=name, shape=shape, held=held, **cmp,
+                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    plain_reps=plain_reps, bound_ms=b_ms, bound_by=b_by,
+                    **chain, input_shapes=shapes)
         emit(line)
-        if not cmp["within_tol"] or not cmp["exact_int_outputs"]:
+        if held and (not cmp["within_tol"] or not cmp["exact_int_outputs"]):
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
                                  f"version: {cmp}")
         if shape == PRIMARY.get(name, "main"):
             primary[name] = line
-        worst[name] = max(worst.get(name, 0.0), cmp["max_abs_err"])
+        if held:
+            worst[name] = max(worst.get(name, 0.0), cmp["max_abs_err"])
     torch.cuda.synchronize()
     missing = [n for n in KERNELS if n not in primary]
     if missing:
@@ -334,7 +392,7 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
         want = plain(*args)
         torch.cuda.synchronize()
         cmp = compare(name, got, want)
-        emit(dict(phase="kernel", name=name, shape=shape, **cmp))
+        emit(dict(phase="kernel", name=name, shape=shape, held=True, **cmp))
         if not cmp["within_tol"] or not cmp["exact_int_outputs"]:
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
                                  f"version: {cmp}")
@@ -343,7 +401,77 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
             raise AssertionError("fused_factor: the pivot floor did not "
                                  "keep the zero-pivot scenario finite")
         worst[name] = max(worst[name], cmp["max_abs_err"])
+        if shape == "nb=9,r=9,conditioned":
+            check_d_row_faults(args, want)
     return primary, worst
+
+
+def conditioned_tension_round(B: int, device, seed: int = 0) -> tuple:
+    """K3's arguments at (9, 9), N 22, on which float32 rounds in different
+    orders agree within TOLERANCE: B TENSION QPs (the port's
+    build_tension_qp_blocks) of 64 seeded points on curves, 25 m long as
+    the main path's, whose d bounds come from a 32 m map with one obstacle
+    across the curves and one beside them; factored by K1 at the default
+    rho_bar, and started from a seeded mid-solve iterate."""
+    mask = np.zeros((160, 160), bool)
+    mask[40:50, 70:80] = True
+    mask[75:85, 30:45] = True
+    gm = maps.build_map(mask, resolution=0.2, device=device)
+    rng = np.random.default_rng(seed)
+    M = 64
+    tt = np.linspace(0.0, 1.0, M)
+    x = -12.5 + 25.0 * tt + rng.normal(scale=0.1, size=(B, M))
+    y = 1.5 * np.sin(3 * tt) + rng.normal(scale=0.1, size=(B, M))
+    ang = np.arctan2(np.gradient(y, axis=1), np.gradient(x, axis=1))
+    f32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.float32), device=device)
+    n_valid = torch.as_tensor(M - rng.integers(0, 4, B), device=device)
+    cfg = PlannerConfig()
+    st = cfg.qp_settings()
+    qp = build_tension_qp_blocks(gm, f32(x), f32(y), f32(ang), n_valid, cfg)
+    rho = st.rho_bar * structured.rho_classes(qp)
+    diag, offp = structured.normal_blocks(qp, rho, st.sigma)
+    lane = fused_rounds.lane
+    ci, wp = fused_rounds.fused_factor(lane(diag), lane(offp))
+    v = f32(rng.normal(scale=0.1, size=tuple(qp.q.shape)))
+    y0 = f32(rng.normal(scale=0.05, size=tuple(qp.lb.shape)))
+    return (ci, wp, lane(qp.a_cur), lane(qp.a_prev), lane(qp.q),
+            lane(qp.lb), lane(qp.ub), lane(rho), lane(v),
+            lane(structured.a_mul(qp, v)), lane(y0), st.check_every,
+            st.alpha, st.sigma)
+
+
+# The rows of a TENSION group that hold d (nb 9: [x, y, d] x 3 points).
+D_ROWS = [2, 5, 8]
+
+
+def d_row_faults(args):
+    """K3's (9, 9) arguments changed as a kernel wrong in the d rows would
+    see them: the free d bounds moved by 0.02 m, and the coupling of x and
+    y to d off by 1e-3. Yields (label, args)."""
+    lb, ub = args[5].clone(), args[6].clone()
+    free = (ub - lb)[:, D_ROWS] > 1e-9
+    lb[:, D_ROWS] += 0.02 * free
+    ub[:, D_ROWS] += 0.02 * free
+    yield "d_bounds+0.02", args[:5] + (lb, ub) + args[7:]
+    ac = args[2].clone()
+    for row in D_ROWS:
+        ac[:, row - 2:row, row] *= 1.001
+    yield "d_coupling*1.001", args[:2] + (ac,) + args[3:]
+
+
+def check_d_row_faults(args, want):
+    """The check that holds K3 at (9, 9) must see a fault of the d rows:
+    the kernel on each of d_row_faults' inputs, against the plain round on
+    the true ones, must fall outside TOLERANCE."""
+    name = "fused_structured_round"
+    for label, bad in d_row_faults(args):
+        cmp = compare(name, fused_rounds.fused_structured_round(*bad), want)
+        emit(dict(phase="kernel", name=name, shape="nb=9,r=9,conditioned",
+                  fault=label, must_fail=True, **cmp))
+        if cmp["within_tol"]:
+            raise AssertionError(f"{name}: the (9, 9) check did not see the "
+                                 f"fault {label}")
 
 
 def zero_pivot(diag, offp, b: int = 0):
@@ -388,10 +516,15 @@ def tie_lattice(B: int, lm1: int, K: int, seed: int = 0):
 
 def edge_cases(captured: dict):
     """Inputs the main path rarely gives, at its shapes: K1 on the
-    zero-pivot input, K4 on a tie-heavy lattice. Yields (name, shape,
-    args)."""
-    diag, offp = captured[("fused_factor", "nb=6")]
-    yield "fused_factor", "nb=6,zero_pivot", zero_pivot(diag, offp)
+    zero-pivot input (the path QP's nb 6 and TENSION's nb 9), K3 at (9, 9)
+    on conditioned_tension_round, K4 on a tie-heavy lattice. Yields (name,
+    shape, args)."""
+    for nb in (6, 9):
+        diag, offp = captured[("fused_factor", f"nb={nb}")]
+        yield "fused_factor", f"nb={nb},zero_pivot", zero_pivot(diag, offp)
+    ci = captured[("fused_structured_round", "nb=9,r=9")][0]
+    yield ("fused_structured_round", "nb=9,r=9,conditioned",
+           conditioned_tension_round(ci.shape[-1], ci.device))
     dp_args = captured[("dp_forward", "main")]
     B, lm1, _, K = dp_args[0].shape
     yield "dp_forward", "ties", tuple(
@@ -399,29 +532,40 @@ def edge_cases(captured: dict):
         for a in tie_lattice(B, lm1, K)) + (dp_args[5],)
 
 
+def check_no_fallback(captured: dict):
+    """K1 and K3 given CUDA tensors at a block shape they are not built for
+    (K1 at nb 5, K3 at (9, 3)) must raise ValueError before any launch:
+    there is no fallback to the plain version."""
+    diag, offp = captured[("fused_factor", "nb=6")]
+    a = captured[("fused_structured_round", "nb=9,r=9")]
+    cut = lambda t: t[:, :3].contiguous()  # noqa: E731
+    calls = {
+        "fused_factor[nb=5]": lambda: fused_rounds.fused_factor(
+            diag[:, :5, :5].contiguous(), offp[:, :5, :5].contiguous()),
+        "fused_structured_round[nb=9,r=3]": lambda: (
+            fused_rounds.fused_structured_round(
+                a[0], a[1], cut(a[2]), cut(a[3]), a[4], cut(a[5]),
+                cut(a[6]), cut(a[7]), a[8], cut(a[9]), cut(a[10]),
+                *a[11:])),
+    }
+    raised = {}
+    for key, call in calls.items():
+        before = dict(kernels.launches)
+        try:
+            call()
+        except ValueError as err:
+            raised[key] = str(err)
+        if key not in raised or kernels.launches != before:
+            raise AssertionError(f"{key}: launched or ran without raising "
+                                 "ValueError")
+    torch.cuda.synchronize()
+    emit(dict(phase="kernel", name="no_fallback", raised=raised))
+
+
 # ------------------------------- main path -----------------------------------
 
-def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
-    """One counted, timed solve_batch on the card; returns (report,
-    launches)."""
-    marks = []
-
-    def hook(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    stats: dict = {}
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = pipeline.solve_batch(gm, scs, cfg, device=device, stats=stats,
-                               hook=hook)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-
-    stage_ms = {a[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
+def check_outputs(res, cfg):
+    """Every path field (B, N) and finite on the valid knots."""
     mask = res.mask
     for f in golden.PATH_FIELDS:
         t = getattr(res, f)
@@ -429,6 +573,126 @@ def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
             raise AssertionError(f"{f}: shape {tuple(t.shape)}")
         if not bool(torch.isfinite(t[mask]).all()):
             raise AssertionError(f"{f}: non-finite values on valid knots")
+
+
+def timed_solve(gm, scs, cfg, device="cuda"):
+    """One solve_batch with CUDA events between its stages: (result, wall
+    seconds, ms by stage, rounds)."""
+    marks, stats = [], {}
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipeline.solve_batch(gm, scs, cfg, device=device, stats=stats,
+                               hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {a[0]: a[1].elapsed_time(b[1])
+                       for a, b in zip(marks, marks[1:])}, stats
+
+
+def collision_report(gm, res, cfg, device="cuda") -> dict:
+    """How many succeeded paths are collision free at every valid knot
+    (the reference's six-circle footprint check, collision.py), and the
+    collision-free share of their valid knots."""
+    car = collision.make_car_geometry(cfg, device)
+    free = collision.is_state_collision_free_improved(gm, car, res.x, res.y,
+                                                      res.heading)
+    path_free = (free | ~res.mask).all(dim=-1) & res.ok
+    ok_res = tree_map(lambda a: a[res.ok], res)
+    return dict(n_ok=int(res.ok.sum()), n_ok_collision_free=int(
+        path_free.sum()), knot_free_share=float(
+        collision.path_collision_free(gm, car, ok_res)))
+
+
+def drive_variants(gm, scs, cfg, device="cuda") -> dict:
+    """solve_batch under each of VARIANTS on the batch: the first run
+    counted (launch counters set to 0 just before, read just after), then
+    REPEATS - 1 more; stage times and solves/s are medians over all."""
+    out = {}
+    for name, kw in VARIANTS.items():
+        vcfg = dataclasses.replace(cfg, **kw)
+        kernels.reset_launches()
+        res, wall, stage_ms, stats = timed_solve(gm, scs, vcfg, device)
+        launches = dict(kernels.launches)
+        by_shape = dict(kernels.shape_launches)
+        check_outputs(res, vcfg)
+        walls, stages = [wall], [stage_ms]
+        for _ in range(REPEATS - 1):
+            _, w, s, _ = timed_solve(gm, scs, vcfg, device)
+            walls.append(w)
+            stages.append(s)
+        ok_fraction = float(res.ok.float().mean())
+        report = dict(
+            phase="variants", variant=name, config=kw, batch=len(res.ok),
+            seconds_runs=walls, solves_per_s=len(res.ok)
+            / statistics.median(walls), ok_fraction=ok_fraction,
+            stage_ms={k: statistics.median(s[k] for s in stages)
+                      for k in stage_ms},
+            rounds=stats, mean_qp_iters=float(res.qp_iters.float().mean()),
+            launches=launches, shape_launches=by_shape,
+            collision=collision_report(gm, res, vcfg, device))
+        emit(report)
+        if ok_fraction != 1.0:
+            raise AssertionError(f"{name}: ok_fraction {ok_fraction} != 1.0")
+        need = ["fused_factor[nb=9]", "fused_structured_round[nb=9,r=9]"] \
+            if name == "tension" else []
+        idle = [k for k in ("fused_factor", "fused_admm_round",
+                            "fused_structured_round") if not launches[k]]
+        idle += [k for k in need if not by_shape.get(k)]
+        if idle:
+            raise AssertionError(f"{name}: launched no {idle}")
+        if name == "astar" and launches["dp_forward"]:
+            raise AssertionError("astar: the DP kernel K4 was launched")
+        out[name] = report
+    return out
+
+
+def drive_replan(gm, scs, cfg, device="cuda") -> dict:
+    """replan_stream on the batch, warm and cold: a 1-cycle stream of each
+    to warm up, then REPLAN_CYCLES cycles of each, its kernel launches
+    counted; and one solve_batch_profiled."""
+    streams, launches = {}, {}
+    for mode in ("warm", "cold"):
+        use_warm = mode == "warm"
+        replan.replan_stream(gm, scs, cfg, n_steps=1, use_warm=use_warm,
+                             device=device)
+        kernels.reset_launches()
+        streams[mode] = dataclasses.asdict(replan.replan_stream(
+            gm, scs, cfg, n_steps=REPLAN_CYCLES, advance_ds=1.0,
+            use_warm=use_warm, device=device))
+        launches[mode] = dict(kernels.launches)
+    rec = profiling.TimeRecorder("one solve")
+    pipeline.solve_batch_profiled(gm, scs, cfg, recorder=rec, device=device)
+    w, c = streams["warm"], streams["cold"]
+    report = dict(phase="replan", batch=len(scs.n_raw), advance_ds=1.0,
+                  cycles=REPLAN_CYCLES, warm=w, cold=c,
+                  iters_rest_warm_over_cold=w["mean_iters_rest"]
+                  / c["mean_iters_rest"], launches=launches,
+                  profiled_stage_ms=rec.stage_ms())
+    emit(report)
+    for mode, st in streams.items():
+        if st["n_ok"] != st["n_total"]:
+            raise AssertionError(f"replan {mode}: {st['n_ok']} of "
+                                 f"{st['n_total']} solves ok")
+    if w["mean_iters_rest"] > c["mean_iters_rest"]:
+        raise AssertionError("replan: the warm cycles iterate more than the "
+                             "cold ones")
+    return report
+
+
+def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
+    """One counted, timed solve_batch on the card; returns (report,
+    launches)."""
+    kernels.reset_launches()
+    res, wall, stage_ms, stats = timed_solve(gm, scs, cfg, device)
+    launches = dict(kernels.launches)
+    by_shape = dict(kernels.shape_launches)
+    check_outputs(res, cfg)
     ok_fraction = float(res.ok.float().mean())
     # Two more timed runs, after the counters were read, for the spread.
     walls = [wall]
@@ -442,7 +706,7 @@ def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
                   solves_per_s=len(res.ok) / statistics.median(walls),
                   ok_fraction=ok_fraction, rounds=stats, stage_ms=stage_ms,
                   mean_qp_iters=float(res.qp_iters.float().mean()),
-                  launches=launches)
+                  launches=launches, shape_launches=by_shape)
     emit(report)
     if ok_fraction != 1.0:
         raise AssertionError(f"ok_fraction {ok_fraction} != 1.0")
@@ -453,15 +717,32 @@ def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
 
 
 def check_golden(cfg, device="cuda"):
-    """The card's result on the fixture's 8 scenarios against the JAX
-    package's stored result, at golden.TOLERANCES."""
+    """The card's results on the fixtures' 8 scenarios against the JAX
+    package's stored results, at golden.TOLERANCES (TENSION's l at
+    golden.FIXTURE_TOLERANCES; A*'s paths on the lanes of
+    golden.PATH_LANES), flags exactly: solve_batch at the default, TENSION
+    and A* configs, and the 3-cycle warm replanning stream."""
     gm, scs, _ = scenarios.build_adversarial(golden.BATCH, device=device)
-    res = pipeline.solve_batch(gm, scs, cfg, device=device)
-    failures, diffs = golden.compare(golden.arrays(res), golden.load())
-    emit(dict(phase="golden", batch=golden.BATCH, diffs=diffs,
-              failures=failures))
-    if failures:
-        raise AssertionError(f"golden fixture mismatch: {failures}")
+    failed = {}
+    for name, kw in golden.CONFIGS.items():
+        fcfg = dataclasses.replace(cfg, **kw)
+        want = golden.load(golden.FIXTURES[name])
+        if name == "replan":
+            got = golden.replan_arrays(
+                lambda s, w: replan.replan_step(gm, s, w, fcfg, None,
+                                                golden.REPLAN_DS,
+                                                device=device),
+                scs, pipeline.QPWarmStart.cold(golden.BATCH, fcfg, device))
+        else:
+            got = golden.arrays(pipeline.solve_batch(gm, scs, fcfg,
+                                                     device=device))
+        failures, diffs = golden.compare_fixture(name, got, want)
+        emit(dict(phase="golden", fixture=name, batch=golden.BATCH,
+                  diffs=diffs, failures=failures))
+        if failures:
+            failed[name] = failures
+    if failed:
+        raise AssertionError(f"golden fixture mismatch: {failed}")
 
 
 def profile_main_path(gm, scs, cfg, wall_unprofiled: float):
@@ -531,8 +812,11 @@ def main() -> int:
 
     captured = capture_inputs(gm, scs, cfg)
     primary, worst = check_kernels(captured)
+    check_no_fallback(captured)
 
     report, launches = drive_main_path(gm, scs, cfg)
+    drive_variants(gm, scs, cfg)
+    drive_replan(gm, scs, cfg)
     check_golden(cfg)
     if "--profile" in sys.argv[1:]:
         profile_main_path(gm, scs, cfg,

@@ -109,6 +109,39 @@ def smoothing_qps():
     return stack(tq), stack(pq)
 
 
+def tension_qps():
+    """A batch of two TENSION QPs (nb = 9, r = 9; 20 points in 7 groups of
+    3) from seeded inputs, their clearance bounds read from a small map
+    with two obstacles."""
+    from tpu_pathopt import maps as jmaps
+    from tpu_pathopt.smoothing.tension import build_tension_qp_blocks
+    cfg = JaxConfig()
+    mask = np.zeros((120, 120), bool)
+    mask[40:50, 70:80] = True
+    mask[75:85, 30:45] = True
+    gm = jmaps.build_map(jnp.asarray(mask), resolution=0.2)
+    rng = np.random.default_rng(4)
+    M = 20
+    qs = []
+    for nv in (17, 20):
+        tt = np.linspace(0, 1, M)
+        x = -8.0 + 16.0 * tt + rng.normal(scale=0.1, size=M)
+        y = 1.5 * np.sin(3 * tt) + rng.normal(scale=0.1, size=M)
+        ang = np.arctan2(np.gradient(y), np.gradient(x))
+        f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+        qs.append(build_tension_qp_blocks(gm, f(x), f(y), f(ang),
+                                          jnp.asarray(nv, jnp.int32), cfg))
+    return jax.tree_util.tree_map(lambda *a: jnp.stack(a), *qs)
+
+
+def structured_qp(case):
+    """The block-banded test QPs of one K3 shape."""
+    if case == "tension_nb9":
+        return tension_qps()
+    tq, pq = smoothing_qps()
+    return tq if case == "tension2_nb4" else pq
+
+
 def structured_factors(qp):
     B = qp.q.shape[0]
     rho = ST.rho_bar * jax.vmap(jstructured.rho_classes)(qp)
@@ -124,14 +157,13 @@ def assert_close(got, want, tol):
 
 # --------------------------------- K1 ---------------------------------------
 
-@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3",
+                                  "tension_nb9"])
 def test_k1_factor_plain_matches_pallas_and_btridiag(case):
     if case == "path_nb6":
         _, _, diag, offp = path_factors(chicane_qps([0.8, -0.5]))
     else:
-        tq, pq = smoothing_qps()
-        _, diag, offp = structured_factors(tq if case == "tension2_nb4"
-                                           else pq)
+        _, diag, offp = structured_factors(structured_qp(case))
     ci_k, wp_k = jfused.fused_factor(lane(diag), lane(offp), interpret=True)
     C, W = jax.vmap(jbtridiag.factor)(diag, offp[:, 1:])
     ci_x, w_x = jbtridiag.inv_factors(C, W)
@@ -153,11 +185,13 @@ def floor_blocks(case):
       the factor is NaN;
     - "zero_pivot": the path-QP blocks at rho_bar 0.1 with row and column 0
       of scenario 1's D_0 set to zero, and column 0 of its first off-block,
-      where the floored pivot keeps every entry finite."""
+      where the floored pivot keeps every entry finite;
+    - "zero_pivot_nb9": the same on the TENSION blocks (nb 9)."""
     if case == "tension2_rho1e6":
         diag, off = normal_blocks64("tension2_nb4", 1e6)
     else:
-        diag, off = normal_blocks64("path_nb6", 0.1)
+        diag, off = normal_blocks64(
+            "tension_nb9" if case == "zero_pivot_nb9" else "path_nb6", 0.1)
         diag[1, 0, 0, :] = 0.0
         diag[1, 0, :, 0] = 0.0
         off[1, 0, :, 0] = 0.0
@@ -166,7 +200,8 @@ def floor_blocks(case):
     return fused_rounds.lane(diag), fused_rounds.lane(offp)
 
 
-@pytest.mark.parametrize("case", ["tension2_rho1e6", "zero_pivot"])
+@pytest.mark.parametrize("case", ["tension2_rho1e6", "zero_pivot",
+                                  "zero_pivot_nb9"])
 def test_k1_factor_plain_keeps_the_pivot_floor(case):
     """K1's plain version computes the Pallas kernel's function where a
     block is not positive definite: the same NaN pattern (cholesky_ex would
@@ -181,7 +216,7 @@ def test_k1_factor_plain_keeps_the_pivot_floor(case):
                                       torch.isnan(w).numpy())
         fin = torch.isfinite(w)
         assert_close(g[fin], w[fin].numpy(), FACTOR_TOL)
-    if case == "zero_pivot":
+    if case.startswith("zero_pivot"):
         assert all(bool(torch.isfinite(g).all()) for g in got)
         assert float(got[0][0, 0, 0, 1]) == pytest.approx(1e6, rel=1e-6)
         C, _ = btridiag.factor(fused_rounds.unlane(diag),
@@ -265,14 +300,19 @@ def kernel_order_factor(diag, offp):
     return cinv, wp
 
 
-@pytest.mark.parametrize("rho_bar", [1e-6, 0.1])
-@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+@pytest.mark.parametrize("case, rho_bar", [
+    (case, rho) for case in ("path_nb6", "tension2_nb4", "post_nb3")
+    for rho in (1e-6, 0.1)] + [("tension_nb9", 0.1), ("tension_nb9", 1e6)])
 def test_k1_kernel_order_matches_pallas_and_float64(case, rho_bar):
     """The CUDA kernel's order and reciprocals (kernel_order_factor) agree
     with the Pallas kernel in interpret mode and with a float64
-    factorization of the same float32 blocks, at FACTOR_TOL, at the three
+    factorization of the same float32 blocks, at FACTOR_TOL, at the four
     block sizes across the adaptive-rho range where the blocks are
-    positive definite."""
+    positive definite. The TENSION blocks (nb 9) at rho_bar 1e-6 are not:
+    their x and y cost is a difference operator, blind to a shift of the
+    whole path, and rho 1e-3 on the tying rows does not make the blocks
+    rounded to float32 positive definite (a float64 Cholesky of them
+    fails), so they are held at 0.1 and 1e6."""
     diag, off = normal_blocks64(case, rho_bar)
     diag, off = diag.float(), off.float()
     offp = torch.cat([torch.zeros_like(diag[:, :1]), off], 1)
@@ -337,8 +377,7 @@ def test_k2_round_plain_matches_pallas_round_and_residuals():
 def k3_case(case):
     """A mid-solve K3 round: (the torch wrapper's arguments, the Pallas
     kernel's result in interpret mode)."""
-    tq, pq = smoothing_qps()
-    qp = tq if case == "tension2_nb4" else pq
+    qp = structured_qp(case)
     rho, diag, offp = structured_factors(qp)
     ci_l, wp_l = jfused.fused_factor(lane(diag), lane(offp), interpret=True)
     B, N, nb = qp.q.shape
@@ -356,13 +395,134 @@ def k3_case(case):
                                         ST.sigma), want
 
 
-@pytest.mark.parametrize("case", ["tension2_nb4", "post_nb3"])
+@pytest.mark.parametrize("case", ["tension2_nb4", "post_nb3", "tension_nb9"])
 def test_k3_round_plain_matches_pallas_round(case):
     args, want = k3_case(case)
     got = fused_rounds.fused_structured_round(*args)
     for a, b in zip(got, want):
         assert a.shape == tuple(b.shape)
         assert_close(a, b, ROUND_TOL)
+
+
+def tension_first_round():
+    """The arguments of the first K3 call of the port's TENSION solve of the
+    golden batch on the CPU: the round that starts from zero."""
+    from tpu_pathopt_torch import golden, pipeline, scenarios
+    from tpu_pathopt_torch.config import PlannerConfig
+    gm, scs, _ = scenarios.build_adversarial(golden.BATCH, device="cpu")
+    seen = []
+    orig = fused_rounds.fused_structured_round
+
+    def rec(*args, **kw):
+        if args[0].shape[1] == 9 and not seen:
+            seen.append(tuple(a.clone() for a in args) + tuple(kw.values()))
+        return orig(*args, **kw)
+
+    fused_rounds.fused_structured_round = rec
+    try:
+        pipeline.stage_smooth(gm, pipeline.stage_prep(
+            scs, PlannerConfig()), PlannerConfig(smoothing_method="TENSION"),
+            PlannerConfig().qp_settings())
+    finally:
+        fused_rounds.fused_structured_round = orig
+    return seen[0]
+
+
+def pallas_structured_round(args):
+    """The Pallas K3 in interpret mode on the torch wrapper's arguments."""
+    return tuple(torch.as_tensor(np.array(a)) for a in
+                 jfused.fused_structured_round(
+                     *(jnp.asarray(a.numpy()) for a in args[:11]),
+                     iters=args[11], alpha=args[12], sigma=args[13],
+                     interpret=True))
+
+
+def round_in_kernel_order(args, monkeypatch):
+    """structured_round_plain with the K2/K3 kernels' sweep order."""
+    with monkeypatch.context() as m:
+        m.setattr(fused_rounds.btridiag, "solve_batched", kernel_order_solve)
+        return fused_rounds.structured_round_plain(*args)
+
+
+@pytest.mark.parametrize("order", ["pallas", "kernel_order"])
+def test_k3_tension_round_has_a_soft_mode(order, monkeypatch):
+    """Why chip_smoke does not hold K3 on the TENSION round of the golden
+    batch (READING_ONLY): there the JAX package's own Pallas kernel, and a
+    model of the CUDA kernel's sweep order, differ from the plain round
+    beyond TOLERANCE, by up to 0.07 m, all of it in d and the coordinate
+    tied to it (a straight lane shifted sideways costs the QP almost
+    nothing); the duals agree within TOLERANCE."""
+    from chip_smoke import compare
+    args = tension_first_round()
+    assert args[0].shape == (22, 9, 9, 8)
+    plain = fused_rounds.structured_round_plain(*args)
+    other = (pallas_structured_round(args) if order == "pallas"
+             else round_in_kernel_order(args, monkeypatch))
+    cmp = compare("fused_structured_round", other, plain)
+    assert not cmp["within_tol"] and 0.01 < cmp["max_abs_err"] < 0.07, cmp
+    assert compare("fused_structured_round", other[2:], plain[2:])[
+        "within_tol"]
+
+
+def test_tension_fixture_l_moves_with_the_kernels_order(monkeypatch):
+    """The soft mode end to end: the port on the CPU with the CUDA kernels'
+    orders in place of the plain versions' (kernel_order_factor for K1,
+    kernel_order_solve for the K2/K3 sweeps) solves the golden batch under
+    TENSION with the TENSION fixture's flags, while its l lands beyond
+    golden.TOLERANCES["l"] (0.05 m) from the fixture, where the plain
+    versions land within it. So the card's TENSION l is held at
+    golden.FIXTURE_TOLERANCES, and K3 at (9, 9) on conditioned inputs."""
+    from tpu_pathopt_torch import golden, pipeline, scenarios
+    from tpu_pathopt_torch.config import PlannerConfig
+    gm, scs, _ = scenarios.build_adversarial(golden.BATCH, device="cpu")
+    cfg = PlannerConfig(**golden.CONFIGS["tension"])
+    want = golden.load(golden.FIXTURES["tension"])
+    plain = golden.arrays(pipeline.solve_batch(gm, scs, cfg, device="cpu"))
+    failures, diffs = golden.compare(plain, want)
+    assert not failures, (failures, diffs)
+    monkeypatch.setattr(fused_rounds, "factor_plain", kernel_order_factor)
+    monkeypatch.setattr(fused_rounds.btridiag, "solve_batched",
+                        kernel_order_solve)
+    got = golden.arrays(pipeline.solve_batch(gm, scs, cfg, device="cpu"))
+    failures, diffs = golden.compare(got, want)
+    assert not [f for f in failures if f.split(":")[0] in golden.FLAG_FIELDS]
+    assert diffs["l"] > golden.TOLERANCES["l"], diffs
+
+
+@pytest.mark.parametrize("order", ["pallas", "kernel_order"])
+def test_k3_conditioned_tension_round_is_held_elementwise(order, monkeypatch):
+    """chip_smoke's conditioned_tension_round (at B = 16 here; N 22 as on
+    the main path) is a (9, 9) round on which other float32 orders, the
+    Pallas kernel's and the CUDA kernel's sweep order, stay within
+    TOLERANCE of the plain round elementwise, so the card holds K3 at
+    (9, 9) there."""
+    from chip_smoke import compare, conditioned_tension_round
+    args = conditioned_tension_round(16, "cpu")
+    assert args[0].shape == (22, 9, 9, 16) and args[2].shape[1] == 9
+    plain = fused_rounds.structured_round_plain(*args)
+    other = (pallas_structured_round(args) if order == "pallas"
+             else round_in_kernel_order(args, monkeypatch))
+    cmp = compare("fused_structured_round", other, plain)
+    assert cmp["within_tol"] and cmp["exact_int_outputs"], cmp
+
+
+@pytest.mark.parametrize("fault", ["d_bounds+0.02", "d_coupling*1.001"])
+def test_k3_conditioned_check_sees_d_row_faults(fault):
+    """A round that is wrong in the d rows fails chip_smoke's (9, 9) check:
+    the plain round on each of d_row_faults' inputs, against the plain
+    round on the true ones, falls outside TOLERANCE, while the d values it
+    returns move by no more than 0.2 m; check_d_row_faults, which the card
+    runs on the CUDA kernel, passes on it."""
+    from chip_smoke import (D_ROWS, check_d_row_faults, compare,
+                            conditioned_tension_round, d_row_faults)
+    args = conditioned_tension_round(16, "cpu")
+    want = fused_rounds.structured_round_plain(*args)
+    bad = dict(d_row_faults(args))[fault]
+    got = fused_rounds.structured_round_plain(*bad)
+    assert not compare("fused_structured_round", got, want)["within_tol"]
+    moved = float((got[0][:, D_ROWS] - want[0][:, D_ROWS]).abs().max())
+    assert 0.0 < moved < 0.2
+    check_d_row_faults(args, want)
 
 
 # ------------------- the sweep order of the K2/K3 kernels -------------------
@@ -411,8 +571,7 @@ def normal_blocks64(case, rho_bar):
         return (torch.as_tensor(np.asarray(diag, np.float64)),
                 torch.as_tensor(np.asarray(off, np.float64)))
     from tpu_pathopt_torch.qp import structured
-    tq, pq = smoothing_qps()
-    qp = tq if case == "tension2_nb4" else pq
+    qp = structured_qp(case)
     rho = rho_bar * np.asarray(jax.vmap(jstructured.rho_classes)(qp),
                                np.float64)
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
@@ -444,7 +603,8 @@ def dense_factor_solve64(Ci, W, b):
 
 
 @pytest.mark.parametrize("rho_bar", [1e-6, 0.1, 1e6])
-@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3",
+                                  "tension_nb9"])
 def test_kernel_sweep_order_matches_btridiag_and_float64(case, rho_bar):
     """The reassociated sweep of K2/K3 agrees with the JAX package's
     solve_batched and with a float64 oracle at the path-QP shape and both K3
@@ -470,7 +630,8 @@ def test_kernel_sweep_order_matches_btridiag_and_float64(case, rho_bar):
     assert_close(got, dense_factor_solve64(Ci, W, b), ROUND_TOL)
 
 
-@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3"])
+@pytest.mark.parametrize("case", ["path_nb6", "tension2_nb4", "post_nb3",
+                                  "tension_nb9"])
 def test_round_in_kernel_sweep_order_matches_pallas_round(case, monkeypatch):
     """A whole 25-iteration round with the K2/K3 kernels' sweep order in
     place of the plain solve stays within the rounds' tolerance of the
@@ -652,6 +813,28 @@ def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
         fused_rounds.check_round_fits("fused_structured_round", 257, 4, 3)
     with pytest.raises(ValueError):
         fused_rounds.check_round_fits("fused_admm_round", 0)
+
+
+def test_round_kernel_takes_the_tension_shape():
+    """K3 at the TENSION QP's (9, 9) with N = 22 groups: (2 81 + 18 + 45 +
+    2 81) 22 4 = 34,056 bytes of shared memory a block."""
+    assert fused_rounds.check_round_fits("fused_structured_round", 22, 9,
+                                         9) == 34056
+
+
+def test_wrapper_shapes_are_the_kernels_instantiations():
+    """The block sizes the K1 and K3 wrappers accept on CUDA tensors are
+    exactly the templates the C launchers instantiate (any other shape
+    raises ValueError in the wrapper before a launch)."""
+    import re
+    src = (kernels.CSRC / "fused_factor.cu").read_text()
+    assert tuple(int(n) for n in re.findall(
+        r"case (\d+): return pathopt::launch_factor<\1>", src)) == \
+        fused_rounds.FACTOR_NB == (3, 4, 6, 9)
+    src = (kernels.CSRC / "fused_structured_round.cu").read_text()
+    assert tuple((int(a), int(b)) for a, b in re.findall(
+        r"launch_structured<(\d+), (\d+)>\(a, smem", src)) == \
+        fused_rounds.ROUND_SHAPES == ((4, 3), (3, 3), (9, 9))
 
 
 def test_kernel_sources_carry_their_notes():

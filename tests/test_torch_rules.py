@@ -97,6 +97,27 @@ def test_entry_points_need_cuda_unless_told_otherwise():
                     for f in dataclasses.fields(scs)}), PlannerConfig())
 
 
+def test_replanning_and_variant_entry_points_need_cuda_too():
+    """The entry points of the replanning loop and of the second
+    configuration raise without a GPU unless told device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from tpu_pathopt_torch import collision, replan
+    gm, scs, _ = scenarios.build_adversarial(4, device="cpu")
+    cfg = PlannerConfig()
+    calls = [lambda: pipeline.solve_batch_warm(gm, scs, cfg),
+             lambda: pipeline.solve_batch_profiled(gm, scs, cfg),
+             lambda: replan.replan_stream(gm, scs, cfg, n_steps=1),
+             lambda: pipeline.QPWarmStart.cold(4, cfg),
+             lambda: collision.make_car_geometry(cfg)]
+    calls += [lambda kw=kw: pipeline.solve_batch(gm, scs, PlannerConfig(**kw))
+              for kw in (dict(smoothing_method="TENSION"),
+                         dict(corridor_method="ASTAR"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def field_defaults(cls):
     return {f.name: f.default for f in dataclasses.fields(cls)}
 

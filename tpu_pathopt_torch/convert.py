@@ -79,3 +79,18 @@ def path_qp(d: dict, device=None) -> assembly.PathQP:
 
 def block_banded_qp(d: dict, device=None) -> structured.BlockBandedQP:
     return _build(structured.BlockBandedQP, d, device)
+
+
+def qp_warm_start(d: dict, device=None) -> pipeline.QPWarmStart:
+    return _build(pipeline.QPWarmStart, d, device)
+
+
+def path_result(d: dict, device=None) -> pipeline.PathResult:
+    """PathResult from its fields; ``d["bounds"]``, if given, is the dict
+    of its CorridorBounds."""
+    kw = {f.name: tensor(d[f.name], device)
+          for f in dataclasses.fields(pipeline.PathResult)
+          if f.name != "bounds"}
+    b = d.get("bounds")
+    return pipeline.PathResult(
+        **kw, bounds=None if b is None else corridor_bounds(b, device))

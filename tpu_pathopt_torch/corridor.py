@@ -7,7 +7,9 @@ reference (:func:`prepare_lattice`), run the layer-sequential dynamic program
 (:func:`dp_forward`, kernel K4 in ``csrc/dp_forward.cu``, beside its plain
 version :func:`dp_forward_plain`), backtrack the cheapest node of the deepest
 reachable layer and widen each backtracked node's corridor by ESDF
-ray-marching (:func:`finish_corridor`). Every array is batch-leading.
+ray-marching (:func:`finish_corridor`). :func:`search_corridor_astar` is the
+reference's A* variant (graphSearch, :297-484) on the same lattice, as plain
+tensor code. Every array is batch-leading.
 """
 
 from __future__ import annotations
@@ -75,12 +77,32 @@ def _hold_from_run_start(feas, vals, reverse):
     return out.flip(-1) if reverse else out
 
 
-def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
-                    ys: splines.CubicSpline, length, start_x, start_y,
-                    start_heading, config: PlannerConfig) -> DpLattice:
-    """Layers, vehicle projection, node sampling, feasibility, rough bounds
-    and every state-independent DP edge cost (:148-238). Per-scenario
-    inputs are (B,)."""
+@dataclasses.dataclass
+class _LatticeGeom:
+    """Lattice geometry shared by the DP and A* searches (reference
+    :148-199 and :304-347 differ only in the feasibility rule, which stays
+    with each search)."""
+
+    layers_s: torch.Tensor    # (B, L)
+    n_layers: torch.Tensor    # (B,) int64
+    vehicle_l: torch.Tensor   # (B,)
+    ok: torch.Tensor          # (B,) bool
+    lat: torch.Tensor         # (K,) lateral offsets
+    ref_x: torch.Tensor       # (B, L)
+    ref_y: torch.Tensor
+    ref_h: torch.Tensor
+    ref_k: torch.Tensor       # (B, L) reference curvature at the layers
+    ref_r: torch.Tensor       # (B, L) signed turn radius 1/k
+    node_x: torch.Tensor      # (B, L, K) lattice node positions
+    node_y: torch.Tensor
+    dis: torch.Tensor         # (B, L, K) node clearance (-1 outside the map)
+
+
+def _build_lattice_geom(gm: maps.GridMap, xs: splines.CubicSpline,
+                        ys: splines.CubicSpline, length, start_x, start_y,
+                        config: PlannerConfig) -> _LatticeGeom:
+    """Layers, vehicle projection and node sampling (:148-199; the A*
+    search repeats the same construction at :304-347)."""
     cfg = config
     L, K = cfg.dp_layers, cfg.dp_laterals
     lat_range = cfg.search_lateral_range
@@ -121,13 +143,40 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     # Signed turn radius 1/k; the epsilon clamp preserves the sign.
     ref_r = 1.0 / torch.where(torch.abs(ref_k) < 1e-9,
                               torch.where(ref_k < 0, -1e-9, 1e-9), ref_k)
+    return _LatticeGeom(layers_s=layers_s, n_layers=n_layers,
+                        vehicle_l=vehicle_l.to(f32), ok=ok, lat=lat,
+                        ref_x=ref_x, ref_y=ref_y, ref_h=ref_h, ref_k=ref_k,
+                        ref_r=ref_r, node_x=node_x, node_y=node_y, dis=dis)
 
-    start_idx = ((lat_range + vehicle_l) / cfg.search_lateral_spacing
+
+def _rough_bounds(feasible, lat):
+    """Per-layer rough (lb, ub) (B, L, K) from lateral feasibility
+    contiguity (:210-226 / :349-361)."""
+    lat_grid = lat.expand(feasible.shape)
+    return (_hold_from_run_start(feasible, lat_grid, reverse=False),
+            _hold_from_run_start(feasible, lat_grid, reverse=True))
+
+
+def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
+                    ys: splines.CubicSpline, length, start_x, start_y,
+                    start_heading, config: PlannerConfig) -> DpLattice:
+    """Layers, vehicle projection, node sampling, feasibility, rough bounds
+    and every state-independent DP edge cost (:148-238). Per-scenario
+    inputs are (B,)."""
+    cfg = config
+    L, K = cfg.dp_layers, cfg.dp_laterals
+    lat_range = cfg.search_lateral_range
+    dev = length.device
+    f32 = torch.float32
+    g = _build_lattice_geom(gm, xs, ys, length, start_x, start_y, cfg)
+    layers_s, n_layers, lat, dis = g.layers_s, g.n_layers, g.lat, g.dis
+    node_x, node_y, ref_h = g.node_x, g.node_y, g.ref_h
+    start_idx = ((lat_range + g.vehicle_l) / cfg.search_lateral_spacing
                  ).to(torch.int32).long().clamp(0, K - 1)
 
     # --- DP feasibility rule (:176-205) ---
     threshold = cfg.car_width / 2.0 + 0.2
-    rk, rr = ref_k[..., None], ref_r[..., None]
+    rk, rr = g.ref_k[..., None], g.ref_r[..., None]
     radius_bad = ((rk < 0) & (lat < rr)) | ((rk > 0) & (lat > rr))
     feasible = ~(radius_bad | (dis < threshold)) & (lat <= lat_range)
     k_idx = torch.arange(K, device=dev)
@@ -135,9 +184,7 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     feasible[:, 0] = k_idx == start_idx[:, None]
 
     # --- Rough per-layer bounds over the lateral axis (:210-226) ---
-    lat_grid = lat.expand(feasible.shape)
-    rough_lb = _hold_from_run_start(feasible, lat_grid, reverse=False)
-    rough_ub = _hold_from_run_start(feasible, lat_grid, reverse=True)
+    rough_lb, rough_ub = _rough_bounds(feasible, lat)
 
     # --- State-independent DP edge costs (:228-238, calculateCostAt) ---
     safe_dist = cfg.dp_safe_distance
@@ -160,8 +207,8 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     cost0 = torch.where(k_idx == start_idx[:, None], 0.0, _INF)
     dir0 = start_heading.to(f32)[:, None].expand(-1, K).contiguous()
     return DpLattice(layers_s=layers_s, n_layers=n_layers,
-                     vehicle_l=vehicle_l.to(f32), ok=ok, ref_x=ref_x,
-                     ref_y=ref_y, ref_h=ref_h, rough_lb=rough_lb,
+                     vehicle_l=g.vehicle_l, ok=g.ok, ref_x=g.ref_x,
+                     ref_y=g.ref_y, ref_h=ref_h, rough_lb=rough_lb,
                      rough_ub=rough_ub, dir_all=dir_all, base_all=base_all,
                      cost0=cost0, dir0=dir0)
 
@@ -242,7 +289,7 @@ def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
         p(dir_all), p(base_all), p(h_in), p(cost0), p(dir0), p(costs),
         p(parents), p(alives), B, lm1, K, float(w1), kernels.stream_ptr(dev))
     kernels.check(err, "dp_forward")
-    kernels.launches["dp_forward"] += 1
+    kernels.count_launch("dp_forward", f"K={K}")
     return costs, parents, alives.bool()
 
 
@@ -311,22 +358,9 @@ def _expand_corridor(gm, ref_x, ref_y, ref_h, rough_lb, rough_ub, path_k,
 def finish_corridor(gm: maps.GridMap, lat: DpLattice, costs, parents, alives,
                     config: PlannerConfig) -> Corridor:
     """Backtrack + corridor expansion (:240-287) from a DP forward pass."""
-    L = config.dp_layers
-    B, K = lat.cost0.shape
-    dev = lat.cost0.device
     threshold = config.car_width / 2.0 + 0.2
-
-    costs = torch.cat([lat.cost0[:, None], costs], 1)            # (B, L, K)
-    parents = torch.cat([torch.zeros((B, 1, K), dtype=parents.dtype,
-                                     device=dev), parents], 1)
-    alives = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
-                        alives], 1)
-    layer = torch.arange(L, device=dev)
-    reach = alives & (layer < lat.n_layers[:, None])
-    max_layer = torch.amax(torch.where(reach, layer, 0), dim=-1)
-    last = torch.gather(costs, 1, max_layer[:, None, None].expand(B, 1, K))
-    best_k_last = torch.argmin(last[:, 0], dim=-1)
-    path_k = _backtrack(parents, max_layer, best_k_last)
+    max_layer, path_k = _best_path(lat.cost0, costs, parents, alives,
+                                   lat.n_layers)
     # Node heading := ref heading per layer (:189); DP thresholds symmetric.
     lower, upper = _expand_corridor(
         gm, lat.ref_x, lat.ref_y, lat.ref_h, lat.rough_lb, lat.rough_ub,
@@ -334,3 +368,122 @@ def finish_corridor(gm: maps.GridMap, lat: DpLattice, costs, parents, alives,
     return Corridor(layers_s=lat.layers_s, lower=lower, upper=upper,
                     n_layers=max_layer + 1, vehicle_l=lat.vehicle_l,
                     ok=lat.ok)
+
+
+def _best_path(cost0, costs, parents, alives, n_layers):
+    """The deepest reached layer (B,) and the lateral index of each layer
+    on the path back from its cheapest node (B, L) (:240-287 / :430-447),
+    from layer 0's costs (B, K) and a forward pass's (costs, parents,
+    alives) over layers 1 .. L-1."""
+    B, K = cost0.shape
+    dev = cost0.device
+    costs = torch.cat([cost0[:, None], costs], 1)                # (B, L, K)
+    parents = torch.cat([torch.zeros((B, 1, K), dtype=parents.dtype,
+                                     device=dev), parents], 1)
+    alives = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                        alives], 1)
+    layer = torch.arange(costs.shape[1], device=dev)
+    reach = alives & (layer < n_layers[:, None])
+    max_layer = torch.amax(torch.where(reach, layer, 0), dim=-1)
+    last = torch.gather(costs, 1, max_layer[:, None, None].expand(B, 1, K))
+    best_k_last = torch.argmin(last[:, 0], dim=-1)
+    return max_layer, _backtrack(parents, max_layer, best_k_last)
+
+
+def search_corridor(gm: maps.GridMap, xs: splines.CubicSpline,
+                    ys: splines.CubicSpline, length, start_x, start_y,
+                    start_heading, config: PlannerConfig) -> Corridor:
+    """The DP corridor search in one call: lattice, forward pass (K4 on
+    CUDA tensors), finish. ``stage_corridor`` calls the three parts
+    itself."""
+    lat = prepare_lattice(gm, xs, ys, length, start_x, start_y,
+                          start_heading, config)
+    costs, parents, alives = dp_forward_batched(lat, config)
+    return finish_corridor(gm, lat, costs, parents, alives, config)
+
+
+# The A* search's transition gate, tan(60 deg) (:421): the float32 value
+# the JAX package computes, tan(float32(pi / 3)), one ulp above the float32
+# nearest sqrt(3).
+_TAN60 = 1.732050895690918
+
+
+def search_corridor_astar(gm: maps.GridMap, xs: splines.CubicSpline,
+                          ys: splines.CubicSpline, length, start_x, start_y,
+                          start_heading, config: PlannerConfig) -> Corridor:
+    """A*-lattice corridor search (graphSearch, :297-484), batched.
+
+    The lattice is the DP search's (:304-347 repeat :148-199). What
+    differs, as in the reference:
+    - a node is feasible at clearance above 1.2 half-widths (:345), and the
+      turn radius clamps the sampled range (:330-339) instead of marking
+      nodes infeasible;
+    - a node's cost is getG (:91-105): obstacle proximity under a 5 m
+      safety distance plus the lateral deviation, no edge term; an edge
+      only has to stay within 60 degrees of the layer direction (:421);
+    - the corridor widens to 1.3 half-widths of clearance above and 1.2
+      below (:458, :471).
+    The heuristic is constant within a layer and the lattice is a layered
+    DAG, so a relaxation over the layers, in order, gives every node its
+    least cost; the JAX package documents the one divergence this fixes
+    (the reference's heuristic is not admissible). The relaxation is plain
+    tensor code, a loop over the L-1 layers on the whole batch, with ties
+    to the smallest parent index (:func:`first_argmin`)."""
+    cfg = config
+    K = cfg.dp_laterals
+    lat_range = cfg.search_lateral_range
+    half_width = cfg.car_width * 0.5
+    g = _build_lattice_geom(gm, xs, ys, length, start_x, start_y, cfg)
+    lat, dis, layers_s = g.lat, g.dis, g.layers_s
+    B, L = layers_s.shape
+    dev = layers_s.device
+
+    # --- A* feasibility (:330-347) ---
+    rr = g.ref_r[..., None]
+    in_range = torch.where(rr > 0, lat <= torch.clamp(rr, max=lat_range),
+                           lat >= torch.clamp(rr, min=-lat_range))
+    # The K-wide grid overshoots +lat_range by up to one spacing step; the
+    # reference samples [-range, range] only (:332-339).
+    in_range = in_range & (lat <= lat_range)
+    feasible = in_range & (dis > 1.2 * half_width)
+    rough_lb, rough_ub = _rough_bounds(feasible, lat)
+
+    # --- Node cost, getG (:91-105) ---
+    safety = 5.0
+    self_cost = torch.where(dis < safety, (safety - dis) / safety
+                            * cfg.search_obstacle_cost, 0.0)
+    self_cost = self_cost + torch.abs(lat) / lat_range \
+        * cfg.search_deviation_cost
+
+    # --- Edge costs (B, L-1, Kp, K): layer 0 is the single start node at
+    # the vehicle's offset, so each of its K columns sits there ---
+    in_mask = torch.arange(1, L, device=dev) < g.n_layers[:, None]
+    feas_in = feasible[:, 1:] & in_mask[..., None]               # (B, L-1, K)
+    l_prev = torch.cat([g.vehicle_l[:, None, None].expand(B, 1, K),
+                        lat.expand(B, L - 2, K)], 1)             # (B, L-1, Kp)
+    edge_ok = (torch.abs(lat[None, None, None, :] - l_prev[..., None])
+               <= _TAN60 * (layers_s[:, 1:] - layers_s[:, :-1])[..., None,
+                                                                None])
+    base_all = torch.where(edge_ok & feas_in[:, :, None, :],
+                           self_cost[:, 1:, None, :], _INF)
+
+    # --- Relaxation over the layers (exact least cost) ---
+    g_p = torch.zeros((B, K), dtype=torch.float32, device=dev)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    gs, parents, alives = [], [], []
+    for layer in range(L - 1):
+        best_g, best_prev = first_argmin(g_p[:, :, None] + base_all[:, layer])
+        alive = alive & torch.any(best_g < _INF, dim=-1)
+        g_p = torch.where(alive[:, None], best_g, _INF)
+        gs.append(g_p)
+        parents.append(best_prev)
+        alives.append(alive)
+    g0 = torch.where(torch.arange(K, device=dev) == 0, 0.0, _INF)
+    max_layer, path_k = _best_path(
+        g0.expand(B, K), torch.stack(gs, 1), torch.stack(parents, 1),
+        torch.stack(alives, 1), g.n_layers)
+    lower, upper = _expand_corridor(
+        gm, g.ref_x, g.ref_y, g.ref_h, rough_lb, rough_ub, path_k, max_layer,
+        1.3 * half_width, 1.2 * half_width)
+    return Corridor(layers_s=layers_s, lower=lower, upper=upper,
+                    n_layers=max_layer + 1, vehicle_l=g.vehicle_l, ok=g.ok)

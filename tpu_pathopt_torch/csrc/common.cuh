@@ -2,9 +2,9 @@
 //
 // Layout convention of K1-K3: every per-scenario array is stored with the
 // scenario batch as the fastest-moving axis, e.g. a (N, nb, nb) block array
-// of B scenarios is (N, nb, nb, B). K1 gives each scenario a group of 8
-// lanes (nb 6) or 4 (nb 3, 4), one per block row, and packs 4 or 8
-// scenarios into one warp, so a load reads neighbouring floats of those
+// of B scenarios is (N, nb, nb, B). K1 gives each scenario a group of 16
+// lanes (nb 9), 8 (nb 6) or 4 (nb 3, 4), one per block row, and packs 2, 4
+// or 8 scenarios into one warp, so a load reads neighbouring floats of those
 // scenarios; K2 and K3 give each scenario a thread block
 // (btri_sweep.cuh). K4's arrays are batch-leading: one thread block per
 // scenario, with K laterals x P slices of the kp scan as its threads.

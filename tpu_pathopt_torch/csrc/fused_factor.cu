@@ -20,10 +20,13 @@
 // dependent square roots and reciprocals of the Crout, and the
 // instructions of one warp, which has an SM nearly to itself.
 //
-// What the design does about it: a scenario gets a group of 8 lanes (nb 6)
-// or 4 (nb 3, 4), lane r owning block row r, and one warp (one block) holds
-// 4 or 8 neighbouring scenarios, so B = 256 is 64 or 32 blocks and each load
-// or store of a warp covers neighbouring floats of its scenarios.
+// What the design does about it: a scenario gets a group of 16 lanes
+// (nb 9, the TENSION QP), 8 (nb 6) or 4 (nb 3, 4), lane r owning block row
+// r, and one warp (one block) holds 2, 4 or 8 neighbouring scenarios, so
+// B = 256 is 128, 64 or 32 blocks and each load or store of a warp covers
+// neighbouring floats of its scenarios. At nb 9 seven lanes of each group
+// idle and every lane holds the 45 floats of Cinv's lower triangle and the
+// 36 of C's below the diagonal.
 // - Load ahead: lane r copies its own row of Off_i and of D_i (c <= r) into
 //   a ring of kRing knots in shared memory with cp.async, kRing - 1 knots
 //   ahead of the chain; a lane reads only what it copied, so no barrier.
@@ -52,7 +55,7 @@
 //   sqrt then 1/x, and -acc * (1/C_aa) in place of -acc / C_aa.
 //   tests/test_torch_kernels.py models this order on the CPU.
 // - Kept: the floor sqrt(max(d, 1e-12)) with NaN propagating as jnp.maximum
-//   does, W_0 = 0, nb templated over {3, 4, 6}, any B (a ragged last group
+//   does, W_0 = 0, nb templated over {3, 4, 6, 9}, any B (a ragged last group
 //   recomputes the last scenario and stores nothing), each output written
 //   once.
 #include "common.cuh"
@@ -70,7 +73,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 template <int NB>
 struct FactorLayout {
-  static constexpr int kLanes = NB > 4 ? 8 : 4;    // lanes per scenario
+  // lanes per scenario: a power of two >= NB, so groups tile the warp
+  static constexpr int kLanes = NB > 8 ? 16 : NB > 4 ? 8 : 4;
   static constexpr int kScen = 32 / kLanes;         // scenarios per block
   static constexpr int kRing = 8;                   // knots of input in flight
   static constexpr int kFlush = 8;                  // knots of output staged
@@ -245,7 +249,7 @@ int launch_factor(const float* diag, const float* offp, float* cinv,
 extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success); an nb other than
-// 3, 4 or 6 returns cudaErrorInvalidValue without launching.
+// 3, 4, 6 or 9 returns cudaErrorInvalidValue without launching.
 int pathopt_fused_factor(const float* diag, const float* offp, float* cinv,
                          float* w, int n, int nb, int batch, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -253,6 +257,7 @@ int pathopt_fused_factor(const float* diag, const float* offp, float* cinv,
     case 3: return pathopt::launch_factor<3>(diag, offp, cinv, w, n, batch, s);
     case 4: return pathopt::launch_factor<4>(diag, offp, cinv, w, n, batch, s);
     case 6: return pathopt::launch_factor<6>(diag, offp, cinv, w, n, batch, s);
+    case 9: return pathopt::launch_factor<9>(diag, offp, cinv, w, n, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

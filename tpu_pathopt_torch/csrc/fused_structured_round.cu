@@ -1,6 +1,6 @@
 // K3: one round of `iters` relaxed-ADMM iterations of a generic
 // block-banded QP (TENSION2 smoothing: nb = 4, r = 3; post-smoothing:
-// nb = 3, r = 3).
+// nb = 3, r = 3; TENSION smoothing: nb = 9, r = 9, points in triples).
 //
 // Replaces: tpu_pathopt/solver/fused_rounds.py, _structured_round_kernel
 // (wrapper fused_structured_round, pallas_call at :396).
@@ -18,21 +18,24 @@
 //
 // What bounds it on the H100: as for K2, the two sweeps. Each step is one
 // dependent nb x nb matvec: 2 x 64 x 25 = 3200 dependent steps per launch
-// for TENSION2 (N = 64) and 2 x 32 x 25 = 1600 for post-smoothing (N = 32),
-// 0.13-0.26 ms and 0.06-0.13 ms at 40-80 ns a step. The bytes (a few MB at
-// B = 256: 0.0017 and 0.00065 ms at 3.35 TB/s) and the flops are far below.
+// for TENSION2 (N = 64), 2 x 32 x 25 = 1600 for post-smoothing (N = 32) and
+// 2 x 22 x 25 = 1100 for TENSION (N = 22), 40-80 ns a step. The bytes (a
+// few MB at B = 256: 0.0017, 0.00065 and 0.0027 ms at 3.35 TB/s) and the
+// flops are far below.
 //
 // What the design does about it: the design of K2. One CTA per scenario,
 // one thread per knot, blockDim rounded up to a whole warp with the ragged
-// threads masked (64 threads at N = 64, 32 at N = 32), so B = 256 is one
-// wave of 256 CTAs. The CTA copies Cinv (lower triangle), a_cur, a_prev and
-// G_i = Cinv_i W_i, H_i = Cinv_i^T W_{i+1}^T into shared memory once:
-// (2 nb^2 + 2 nb + nb (nb + 1) / 2 + 2 r nb) floats per knot, 18,944 bytes
-// at (4, 3, N = 64) and 6,144 at (3, 3, N = 32). Thread i keeps knot i's v,
-// q, z, y, rho, lb and ub in registers for the whole launch; the rhs, A vt,
-// the projection and the dual update run in parallel over knots, and only
-// the sweeps are serial, on lanes 0..nb-1 of warp 0. Templated on (nb, r)
-// so every block loop unrolls.
+// threads masked (64 threads at N = 64, 32 at N = 32 and at N = 22), so
+// B = 256 is one wave of 256 CTAs. The CTA copies Cinv (lower triangle),
+// a_cur, a_prev and G_i = Cinv_i W_i, H_i = Cinv_i^T W_{i+1}^T into shared
+// memory once: (2 nb^2 + 2 nb + nb (nb + 1) / 2 + 2 r nb) floats per knot,
+// 18,944 bytes at (4, 3, N = 64), 6,144 at (3, 3, N = 32) and 34,056 at
+// (9, 9, N = 22). Thread i keeps knot i's v, q, z, y, rho, lb and ub in
+// registers for the whole launch; the rhs, A vt, the projection and the
+// dual update run in parallel over knots, and only the sweeps are serial,
+// on lanes 0..nb-1 of warp 0 (0..8 at nb 9; the shuffles name those lanes
+// in their mask, so nb may be up to 32). Templated on (nb, r) so every
+// block loop unrolls.
 #include "btri_sweep.cuh"
 
 namespace pathopt {
@@ -188,9 +191,9 @@ int launch_structured(const StructArgs& a, int smem_bytes,
 }  // namespace pathopt
 
 // Returns the cudaError_t of the launch (0 on success). An (nb, r) other
-// than (4, 3) or (3, 3), a smem_bytes other than the CTA's shared memory for
-// n knots (fused_rounds.round_smem_bytes), n above 256 or a batch of 0
-// returns cudaErrorInvalidValue without launching.
+// than (4, 3), (3, 3) or (9, 9), a smem_bytes other than the CTA's shared
+// memory for n knots (fused_rounds.round_smem_bytes), n above 256 or a
+// batch of 0 returns cudaErrorInvalidValue without launching.
 extern "C" int pathopt_fused_structured_round(
     const float* Ci, const float* Wp, const float* ac, const float* ap,
     const float* q, const float* lb, const float* ub, const float* rho,
@@ -204,5 +207,7 @@ extern "C" int pathopt_fused_structured_round(
     return pathopt::launch_structured<4, 3>(a, smem_bytes, s);
   if (nb == 3 && r == 3)
     return pathopt::launch_structured<3, 3>(a, smem_bytes, s);
+  if (nb == 9 && r == 9)
+    return pathopt::launch_structured<9, 9>(a, smem_bytes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

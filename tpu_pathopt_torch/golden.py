@@ -1,7 +1,16 @@
-"""The golden fixture: the JAX package's ``solve_batch`` result on the
-8-scenario adversarial batch (``scenarios.adversarial_arrays(8)``, two per
-lane, default ``PlannerConfig``), stored as ``testdata/jax_adversarial_b8.npz``,
-and the tolerances the port is held to against it, on the CPU and the card.
+"""The golden fixtures: the JAX package's results on the 8-scenario
+adversarial batch (``scenarios.adversarial_arrays(8)``, two per lane),
+stored in ``testdata/``, and the tolerances the port is held to against
+them, on the CPU and the card:
+
+- ``jax_adversarial_b8.npz``: ``solve_batch`` at the default
+  ``PlannerConfig`` (TENSION2 + DP);
+- ``jax_tension_b8.npz``, ``jax_astar_b8.npz``: ``solve_batch`` under the
+  configurations of :data:`CONFIGS` (TENSION + DP, TENSION2 + A*);
+- ``jax_replan_b8.npz``: :data:`REPLAN_CYCLES` cycles of the warm
+  replanning stream at the default config, advancing
+  :data:`REPLAN_DS` m a cycle: each cycle's result and the start pose it
+  advanced to (:func:`replan_arrays`).
 
 The tolerances are end to end. Stage by stage, fed the JAX stage's own
 inputs, the port agrees far more tightly (``tests/test_torch_stages.py``).
@@ -20,8 +29,19 @@ from pathlib import Path
 
 import numpy as np
 
-FIXTURE = Path(__file__).resolve().parent / "testdata" / "jax_adversarial_b8.npz"
+TESTDATA = Path(__file__).resolve().parent / "testdata"
+FIXTURE = TESTDATA / "jax_adversarial_b8.npz"
+FIXTURES = {"default": FIXTURE,
+            "tension": TESTDATA / "jax_tension_b8.npz",
+            "astar": TESTDATA / "jax_astar_b8.npz",
+            "replan": TESTDATA / "jax_replan_b8.npz"}
+# PlannerConfig keyword arguments of each fixture (both packages).
+CONFIGS = {"default": {}, "tension": {"smoothing_method": "TENSION"},
+           "astar": {"corridor_method": "ASTAR"}, "replan": {}}
 BATCH = 8
+REPLAN_CYCLES = 3
+REPLAN_DS = 1.0
+POSE_FIELDS = ("start_x", "start_y", "start_heading", "start_k")
 
 PATH_FIELDS = ("x", "y", "heading", "l", "d_heading", "k", "d_k", "s")
 FLAG_FIELDS = ("ok", "blocked", "ok_input", "ok_smooth", "ok_corridor",
@@ -32,6 +52,24 @@ BOUND_FIELDS = ("front_lb", "front_ub", "rear_lb", "rear_ub")
 # Max abs difference over each scenario's valid knots (meters, radians, 1/m).
 TOLERANCES = {"x": 0.15, "y": 0.15, "s": 0.15, "l": 0.05, "heading": 0.02,
               "d_heading": 0.02, "k": 0.02, "d_k": 0.05, "bounds": 0.3}
+
+# The scenarios of each fixture whose paths are compared (flags and counts
+# are compared on all). Under A* the tight and slalom lanes (scenarios 2-5)
+# are chaotic in the JAX package itself: a relative 1e-7 change of its raw
+# points moves its result there by up to 0.52 m in x, 0.26 m in l and 3.1 m
+# in the collision bounds (tests/test_torch_fixtures.py shows it), as the A*
+# node costs tie closely and a corridor march step flips. There only the
+# flags and counts are held.
+PATH_LANES = {"astar": np.array([True, True] + [False] * 4 + [True, True])}
+
+# Fixtures held to other tolerances. The TENSION smoothing QP stops after
+# one round anywhere in its termination band, eps_abs + eps_rel |A v| of
+# about 0.05 m (|A v| is the 25 m of the coordinates; TENSION2's rows are
+# increments of about 1 m, so its band is 0.004 m), and the path's l is
+# its offset from the smoothed reference: l's tolerance is the default's
+# plus that band. The JAX package's own XLA and TPU paths differ by 0.13 m
+# in l on this batch.
+FIXTURE_TOLERANCES = {"tension": {**TOLERANCES, "l": 0.1}}
 
 
 def arrays(res) -> dict:
@@ -50,14 +88,67 @@ def _np(a):
     return a
 
 
-def load() -> dict:
-    with np.load(FIXTURE) as z:
+def compare_fixture(name: str, got: dict, want: dict):
+    """:func:`compare` (or :func:`compare_replan`) at the fixture's own
+    lanes and tolerances."""
+    if name == "replan":
+        return compare_replan(got, want)
+    return compare(got, want, lanes=PATH_LANES.get(name),
+                   tolerances=FIXTURE_TOLERANCES.get(name))
+
+
+def load(path=FIXTURE) -> dict:
+    with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 
-def compare(got: dict, want: dict, check_every: int = 25):
+def replan_arrays(step, scs, warm, n_steps: int = REPLAN_CYCLES) -> dict:
+    """Run ``n_steps`` replanning cycles ``step(scs, warm) -> (PathResult,
+    warm, advanced scenarios)`` (either package's ``replan_step``) and
+    return the replan fixture's flat dict: cycle c's :func:`arrays` under
+    ``"c{c}.<field>"`` and its advanced start pose under
+    ``"c{c}.start_x"`` etc."""
+    out = {}
+    for c in range(n_steps):
+        res, warm, scs = step(scs, warm)
+        out.update({f"c{c}.{k}": v for k, v in arrays(res).items()})
+        out.update({f"c{c}.{f}": np.asarray(_np(getattr(scs, f)))
+                    for f in POSE_FIELDS})
+    return out
+
+
+def compare_replan(got: dict, want: dict, check_every: int = 25):
+    """:func:`compare` for every cycle of two replan fixture dicts, and each
+    cycle's advanced start pose within the path tolerances (x, y, heading,
+    k). Failures and diffs are prefixed with their cycle."""
+    failures, diffs = [], {}
+    pose_tol = dict(start_x="x", start_y="y", start_heading="heading",
+                    start_k="k")
+    for c in range(REPLAN_CYCLES):
+        pre = f"c{c}."
+        cut = lambda d: {k[len(pre):]: v for k, v in d.items()  # noqa: E731
+                         if k.startswith(pre)}
+        g, w = cut(got), cut(want)
+        f, d = compare(g, w, check_every)
+        failures += [pre + x for x in f]
+        diffs.update({pre + k: v for k, v in d.items()})
+        for name, tol in pose_tol.items():
+            dp = float(np.abs(g[name].astype(np.float64) - w[name]).max())
+            diffs[pre + name] = dp
+            if not dp <= TOLERANCES[tol]:
+                failures.append(f"{pre}{name}: max abs diff {dp:.3g} > "
+                                f"{TOLERANCES[tol]}")
+    return failures, diffs
+
+
+def compare(got: dict, want: dict, check_every: int = 25, lanes=None,
+            tolerances=None):
     """(failures, diffs): the checks that failed, as readable strings, and
-    the max abs difference of every compared field."""
+    the max abs difference of every compared field. ``lanes`` (a boolean
+    mask over the batch, default all) picks the scenarios whose paths and
+    bounds are compared; flags and counts are compared on every scenario.
+    ``tolerances`` defaults to :data:`TOLERANCES`."""
+    tolerances = tolerances or TOLERANCES
     failures, diffs = [], {}
     for f in FLAG_FIELDS:
         if not np.array_equal(got[f], want[f]):
@@ -72,10 +163,12 @@ def compare(got: dict, want: dict, check_every: int = 25):
         failures.append(f"qp_iters differ by {di.max()}")
     n = np.minimum(got["n_valid"], want["n_valid"])
     mask = np.arange(got["x"].shape[-1])[None] < n[:, None]
+    if lanes is not None:
+        mask &= np.asarray(lanes, bool)[:, None]
     for f in PATH_FIELDS + tuple("bounds." + b for b in BOUND_FIELDS):
         d = np.where(mask, np.abs(got[f].astype(np.float64) - want[f]), 0.0)
         diffs[f] = float(d.max())
-        tol = TOLERANCES["bounds" if f.startswith("bounds.") else f]
+        tol = tolerances["bounds" if f.startswith("bounds.") else f]
         if not d.max() <= tol:
             failures.append(f"{f}: max abs diff {d.max():.3g} > {tol}")
     return failures, diffs

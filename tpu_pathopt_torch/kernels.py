@@ -8,9 +8,10 @@ this file, named by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads at once.
 
 Every launcher returns the ``cudaError_t`` of its launch; :func:`check`
-raises on anything but 0. Each wrapper adds one to ``launches[name]`` where
-it launches its kernel, and nowhere else, so a run can show that the main
-path went through the kernels.
+raises on anything but 0. Each wrapper calls :func:`count_launch` where it
+launches its kernel, and nowhere else, which adds one to ``launches[name]``
+and to ``shape_launches`` under the kernel and its block shape, so a run can
+show that the main path went through each kernel at each of its shapes.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Kernel name -> launches since the last reset.
 launches = {"fused_factor": 0, "fused_admm_round": 0,
             "fused_structured_round": 0, "dp_forward": 0}
+# "name[shape]" (e.g. "fused_factor[nb=9]") -> launches since the last reset.
+shape_launches: dict = {}
 # Filled by build(): the commands, seconds, library path and nvcc output.
 build_info: dict = {}
 
@@ -45,6 +48,14 @@ _lib = None
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    shape_launches.clear()
+
+
+def count_launch(name: str, shape: str):
+    """Count one launch of kernel ``name`` at block shape ``shape``."""
+    launches[name] += 1
+    key = f"{name}[{shape}]"
+    shape_launches[key] = shape_launches.get(key, 0) + 1
 
 
 def nvcc_path() -> str:

@@ -7,7 +7,8 @@ Problem form (every field batch-leading):
     P block-tridiagonal: p_diag[i] = P[i, i], p_off[i] = P[i, i-1]
     A block-banded:      row group i = a_cur[i] v_i + a_prev[i] v_{i-1}
 
-Serves the TENSION2 (nb = 4, r = 3) and post-smoothing (nb = 3, r = 3) QPs.
+Serves the TENSION2 (nb = 4, r = 3), post-smoothing (nb = 3, r = 3) and
+TENSION (nb = 9, r = 9) QPs.
 OSQP semantics: relaxed ADMM, per-row rho classes, per-element adaptive rho
 with selective refactor, unscaled-residual termination; converged elements
 stay frozen. The rounds run batch-global; each round's loop test and

@@ -15,13 +15,14 @@
   plain structured step looped ``iters`` times.
 
 The kernels' arrays are batch-last ("lane-major", e.g. (N, nb, nb, B)). K1
-gives each scenario a group of 8 lanes (nb 6) or 4 (nb 3, 4), one per
-block row, with 4 or 8 neighbouring scenarios in one warp; K2 and K3 give
-each scenario a thread block with one thread per knot and hold the whole
-round in its shared memory, which bounds N (:func:`round_smem_bytes`). A
-wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel on the current stream or raises. There is no fallback
-between the two.
+gives each scenario a group of 16 lanes (nb 9), 8 (nb 6) or 4 (nb 3, 4),
+one per block row, with 2, 4 or 8 neighbouring scenarios in one warp; K2
+and K3 give each scenario a thread block with one thread per knot and hold
+the whole round in its shared memory, which bounds N
+(:func:`round_smem_bytes`). A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches its kernel on the current stream or
+raises, also at a block shape its kernel is not built for. There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ def check_round_fits(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
 # --------------------------------- K1 ---------------------------------------
 
 PIVOT_FLOOR = 1e-12
+# The block sizes K1 is built for: the path QP (6), TENSION2 (4),
+# post-smoothing (3) and TENSION (9).
+FACTOR_NB = (3, 4, 6, 9)
 _LOW29 = (1 << 29) - 1       # the float64 mantissa bits below float32's
 _HALF29 = 1 << 28            # ... of a float32 midpoint
 _INF64 = float("inf")
@@ -180,23 +184,24 @@ def factor_plain(diag, offp):
 
 def fused_factor(diag, offp):
     """Factor a batch of block-tridiagonal normal matrices (K1).
-    diag/offp: (N, nb, nb, B) float32, offp[0] = 0; nb in {3, 4, 6}.
-    Returns (Cinv, Wp) in the same layout."""
+    diag/offp: (N, nb, nb, B) float32, offp[0] = 0; on CUDA tensors nb is
+    one of ``FACTOR_NB``. Returns (Cinv, Wp) in the same layout."""
     dev = kernels.kernel_device(diag, offp)
     if dev is None:
         return factor_plain(diag, offp)
     n, nb, _, B = diag.shape
     for name, t in (("diag", diag), ("offp", offp)):
         kernels.expect(name, t, (n, nb, nb, B), F32, dev)
-    if nb not in (3, 4, 6):
-        raise ValueError(f"fused_factor: nb={nb}, the kernel takes 3, 4 or 6")
+    if nb not in FACTOR_NB:
+        raise ValueError(f"fused_factor: nb={nb}, the kernel takes "
+                         f"{FACTOR_NB}")
     cinv = torch.empty_like(diag)
     w = torch.empty_like(diag)
     err = kernels.lib().pathopt_fused_factor(
         kernels.ptr(diag), kernels.ptr(offp), kernels.ptr(cinv),
         kernels.ptr(w), n, nb, B, kernels.stream_ptr(dev))
     kernels.check(err, "fused_factor")
-    kernels.launches["fused_factor"] += 1
+    kernels.count_launch("fused_factor", f"nb={nb}")
     return cinv, w
 
 
@@ -301,11 +306,16 @@ def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
         int(iters), smem, float(alpha), float(1 - alpha), float(sigma),
         float(geom[0]), float(geom[1]), kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
-    kernels.launches["fused_admm_round"] += 1
+    kernels.count_launch("fused_admm_round", "nb=6")
     return v, zk, ze, yk, ye, res
 
 
 # --------------------------------- K3 ---------------------------------------
+
+# The (nb, r) K3 is built for: TENSION2 (4, 3), post-smoothing (3, 3) and
+# TENSION (9, 9).
+ROUND_SHAPES = ((4, 3), (3, 3), (9, 9))
+
 
 def structured_step(qp, Ci, W, rho, state, alpha, sigma):
     """One relaxed-ADMM iteration of block-banded QPs, batch-leading
@@ -342,8 +352,8 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
                            iters: int, alpha: float, sigma: float):
     """``iters`` ADMM iterations of block-banded QPs in one launch (K3).
     Lane-major float32: Ci/Wp (N, nb, nb, B), ac/ap (N, r, nb, B),
-    q/v (N, nb, B), lb/ub/rho/z/y (N, r, B); (nb, r) in {(4, 3), (3, 3)}.
-    Returns (v, z, y). On CUDA tensors N is at most 256
+    q/v (N, nb, B), lb/ub/rho/z/y (N, r, B). Returns (v, z, y). On CUDA
+    tensors (nb, r) is one of ``ROUND_SHAPES`` and N is at most 256
     (:func:`check_round_fits`)."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
@@ -351,9 +361,9 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
                                       y, iters, alpha, sigma)
     N, nb, _, B = Ci.shape
     r = ac.shape[1]
-    if (nb, r) not in ((4, 3), (3, 3)):
+    if (nb, r) not in ROUND_SHAPES:
         raise ValueError(f"fused_structured_round: (nb, r)=({nb}, {r}), the "
-                         "kernel takes (4, 3) or (3, 3)")
+                         f"kernel takes {ROUND_SHAPES}")
     shapes = dict(Ci=(N, nb, nb, B), Wp=(N, nb, nb, B), ac=(N, r, nb, B),
                   ap=(N, r, nb, B), q=(N, nb, B), lb=(N, r, B), ub=(N, r, B),
                   rho=(N, r, B), v=(N, nb, B), z=(N, r, B), y=(N, r, B))
@@ -369,5 +379,5 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
         p(y), N, nb, r, B, int(iters), smem, float(alpha), float(1 - alpha),
         float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_structured_round")
-    kernels.launches["fused_structured_round"] += 1
+    kernels.count_launch("fused_structured_round", f"nb={nb},r={r}")
     return v, z, y

@@ -34,6 +34,13 @@ def tree_map(fn, obj):
     return obj
 
 
+def tree_leaves(obj) -> list:
+    """Every tensor inside ``obj``, in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, obj)
+    return out
+
+
 def to_device(obj, device):
     """Move every tensor of ``obj`` to ``device`` (no copy where it lies)."""
     return tree_map(lambda t: t.to(device), obj)
