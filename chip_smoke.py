@@ -9,9 +9,11 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions) and the build (nvcc commands, seconds, registers and spills);
 2. ``kernel``: runs ``pipeline.solve_batch`` on the 256-scenario
-   adversarial batch at the default config and under TENSION (K1 at nb 9,
-   K3 at (9, 9)), and one warm replanning cycle (K2 under the key
-   ``warm``, seeded with each lane's rho from the previous solve), while
+   adversarial batch at the default config, under TENSION (K1 at nb 9,
+   K3 at (9, 9)) and under the rough far-away rows (K2 under the key
+   ``rough``: each knot's own collision rows), and one warm replanning
+   cycle (K2 under the key ``warm``, seeded with each lane's rho from the
+   previous solve), while
    recording the first arguments each kernel wrapper is given at each of
    its shapes, and holds every kernel against its plain PyTorch version on
    those very tensors, on the card, with the stated tolerance (K4's parents
@@ -23,27 +25,45 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    K1 on a zero-pivot input (the pivot floor) at nb 6 and 9, K3 at (9, 9)
    on conditioned TENSION QPs (``conditioned_tension_round``), where it
    must also fail on inputs faulted in the d rows, and K4 on a tie-heavy
-   lattice (the first-argmin rule); and requires that K1 and K3 given CUDA
-   tensors at a block shape they are not built for raise ValueError
-   without a launch;
+   lattice (the first-argmin rule); requires that the rough K2 round with
+   the rows of one knot at every knot (the Pallas kernel's function) falls
+   outside the tolerance its kernel is held to; and requires that K1, K2
+   and K3 given CUDA tensors at a shape they are not built for, and a
+   ``coll_coef`` of a structure K2 does not take, raise ValueError without
+   a launch;
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
    launched, every scenario succeeded and every output is finite;
-4. ``variants``: the same batch under TENSION + DP and under TENSION2 + A*,
-   counted the same way (K1 at nb 9 and K3 at (9, 9) must launch under
-   TENSION, K4 must not under A*), timed by stage over 3 runs, with the
-   number of succeeded paths that are collision free
-   (``collision.py``);
+4. ``variants``: the same batch under TENSION + DP, TENSION2 + A*, the
+   rough far-away rows and the directional prescan fallback, counted the
+   same way (K1 at nb 9 and K3 at (9, 9) must launch under TENSION, K4
+   must not under A*, K2 must launch under its rough key under rough),
+   timed by stage over 3 runs, with the number of succeeded paths that
+   are collision free (``collision.py``);
 5. ``replan``: ``replan.replan_stream`` on the batch, 6 cycles warm and 6
    cold after a 1-cycle warm-up of each; every cycle must succeed and the
    warm cycles take no more ADMM iterations than the cold; and the
    ``solve_batch_profiled`` stage times of one solve;
 6. ``golden``: solves the golden fixtures' 8 scenarios on the card and
    holds each result against the JAX package's stored one
-   (``tpu_pathopt_torch/testdata/``: the default, TENSION and A* configs
-   and the 3-cycle replanning stream);
-7. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
+   (``tpu_pathopt_torch/testdata/``: the default, TENSION, A* and rough
+   configs and the 3-cycle replanning stream), and as a reading solves the
+   TENSION fixture with the plain rounds on the card
+   (``QPSettings(fused_rounds=False)``), a second witness of its l;
+7. ``dist``: a one-rank NCCL group on 127.0.0.1: ``dist.solve_sharded``
+   on the batch (counted; flags, counts and n_valid equal to
+   ``solve_batch``'s, FleetStats equal to the result's counts),
+   ``dist.solve_streamed`` over 4 batches of 64, and
+   ``replan.replan_stream_sharded`` against ``replan.replan_stream`` over
+   3 cycles;
+8. ``cli``: ``cli.main(["--synthetic", "--profile", "--verbose-qp",
+   "--batch", "256"])`` on the card (counted), which must print a
+   succeeded solve, the stage times, a converged trace and 256/256 ok;
+9. ``pscan``: one solve of 32 scenarios with the plain rounds and the
+   parallel-prefix solve, ``QPSettings(fused_rounds=False, pscan=True)``,
+   whose ok flags must equal the sequential solve's;
+10. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs the main path once under
@@ -58,18 +78,23 @@ With no CUDA device it exits with code 2 at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from tpu_pathopt_torch import (collision, corridor, golden, kernels, maps,
-                               pipeline, profiling, replan, scenarios)
+from tpu_pathopt_torch import (cli, collision, corridor, dist, golden,
+                               kernels, maps, pipeline, profiling, replan,
+                               scenarios)
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.qp import structured
 from tpu_pathopt_torch.smoothing.tension import build_tension_qp_blocks
@@ -84,7 +109,16 @@ SLOW_PLAIN_S = 0.1           # a plain version slower than this is timed
 SLOW_PLAIN_REPS = 3          # ... over this many calls, after one warm-up
 REPLAN_CYCLES = 6            # timed cycles of each replanning stream
 VARIANTS = {"tension": dict(smoothing_method="TENSION"),
-            "astar": dict(corridor_method="ASTAR")}
+            "astar": dict(corridor_method="ASTAR"),
+            "rough": dict(rough_constraints_far_away=True),
+            "prescan": dict(directional_prescan_fallback=True)}
+# Launch keys each variant must show (kernels.shape_launches).
+VARIANT_KEYS = {"tension": ["fused_factor[nb=9]",
+                            "fused_structured_round[nb=9,r=9]"],
+                "rough": ["fused_admm_round[nb=6,rough]"]}
+DIST_STREAM = (4, 64)        # batches x scenarios of the streamed run
+DIST_REPLAN_CYCLES = 3
+PSCAN_BATCH = 32
 HOLD_CYCLES = 4_000_000      # about 2 ms of device clock before a timed call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -171,9 +205,10 @@ def work(name: str, args) -> tuple[int, int]:
         ins = n * nb * (nb + 1) // 2 + (n - 1) * nb * nb
         return (ins + 2 * n * nb * nb) * b * f, n * b * _factor_flops(nb)
     if name == "fused_admm_round":
+        # the collision rows (4 floats a knot), the factors and the rest
         ci, iters = args[1], args[17]
         n, nb, _, b = ci.shape
-        ins = sum(a.numel() for a in args[1:17] if torch.is_tensor(a))
+        ins = sum(a.numel() for a in args[:17] if torch.is_tensor(a))
         outs = 3 * n * nb * b + 2 * 2 * b + 4 * b
         # per knot and iteration: rhs 70, two sweeps, A vt 42, relax 72;
         # the residuals once: about 160 per knot
@@ -244,10 +279,11 @@ def _clone(a):
 
 
 def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
-    """Run the main path once, then TENSION once and one warm replanning
-    cycle, recording the first positional arguments (cloned) that each
-    wrapper gets at each of its shapes; K2's first call of the warm cycle
-    (pass 1, seeded from the previous solve) under the key "warm"."""
+    """Run the main path once, then TENSION once, one warm replanning cycle
+    and the rough rows once, recording the first positional arguments
+    (cloned) that each wrapper gets at each of its shapes; K2's first call
+    of the warm cycle (pass 1, seeded from the previous solve) under the
+    key "warm", its first under the rough rows under "rough"."""
     seen: dict = {}
     k2_key = ["main"]
     targets = [(fused_rounds, "fused_factor"),
@@ -275,6 +311,9 @@ def capture_inputs(gm, scs, cfg, device="cuda") -> dict:
         k2_key[0] = "warm"
         pipeline.solve_batch_warm(gm, replan.advance_scenarios(scs, res, 1.0),
                                   cfg, warm=warm, device=device)
+        k2_key[0] = "rough"
+        pipeline.solve_batch(gm, scs, dataclasses.replace(
+            cfg, **VARIANTS["rough"]), device=device)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
@@ -338,12 +377,12 @@ def compare(name: str, got, want) -> dict:
                 exact_int_outputs=exact)
 
 
-def check_kernels(captured: dict) -> tuple[dict, dict]:
+def check_kernels(captured: dict) -> tuple[dict, dict, dict]:
     """Each kernel against its plain version on the captured tensors and on
     edge_cases; one line per (kernel, shape). Returns (the line of each
     kernel's primary shape, each kernel's largest abs difference over the
-    shapes it is held at)."""
-    primary, worst = {}, {}
+    shapes it is held at, each kernel's times and bound by shape)."""
+    primary, worst, by_shape = {}, {}, {}
     for (name, shape), args in sorted(captured.items()):
         _, _, wrapper, plain = KERNELS[name]
         got = wrapper(*args)
@@ -378,6 +417,11 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
         if held and (not cmp["within_tol"] or not cmp["exact_int_outputs"]):
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
                                  f"version: {cmp}")
+        by_shape.setdefault(name, {})[shape] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            max_abs_err=cmp["max_abs_err"], held=held)
+        if (name, shape) == ("fused_admm_round", "rough"):
+            check_rough_rows_seen(args, want)
         if shape == PRIMARY.get(name, "main"):
             primary[name] = line
         if held:
@@ -403,7 +447,29 @@ def check_kernels(captured: dict) -> tuple[dict, dict]:
         worst[name] = max(worst[name], cmp["max_abs_err"])
         if shape == "nb=9,r=9,conditioned":
             check_d_row_faults(args, want)
-    return primary, worst
+    return primary, worst, by_shape
+
+
+def check_rough_rows_seen(args, want):
+    """The check that holds K2 on the rough rows must see them: the plain
+    round given the rows of scenario 0's first knot at every knot and
+    scenario (the Pallas kernel's function, which reads
+    coll_coef[:1, 0]) must fall outside TOLERANCE of the plain round on
+    the true rows, or differ from it in where it is NaN."""
+    name = "fused_admm_round"
+    cc = args[0]
+    const = cc[:1, :, :, :1].expand_as(cc).contiguous()
+    got = fused_rounds.admm_round_plain(const, *args[1:])
+    torch.cuda.synchronize()
+    nan_differs = any(not bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+                      for g, w in zip(got, want))
+    cmp = {} if nan_differs else compare(name, got, want)
+    emit(dict(phase="kernel", name=name, shape="rough",
+              fault="rows of knot 0 at every knot", must_fail=True,
+              nan_differs=nan_differs, **cmp))
+    if not nan_differs and cmp["within_tol"]:
+        raise AssertionError(f"{name}: the rough check did not see the rows "
+                             "of one knot put at every knot")
 
 
 def conditioned_tension_round(B: int, device, seed: int = 0) -> tuple:
@@ -533,13 +599,24 @@ def edge_cases(captured: dict):
 
 
 def check_no_fallback(captured: dict):
-    """K1 and K3 given CUDA tensors at a block shape they are not built for
-    (K1 at nb 5, K3 at (9, 3)) must raise ValueError before any launch:
-    there is no fallback to the plain version."""
+    """K1, K2 and K3 given CUDA tensors at a shape they are not built for
+    (K1 at nb 5, K2's collision rows 3 wide, K3 at (9, 3)), and a
+    coll_coef with a kappa coefficient in a collision row (K2 takes none),
+    must raise ValueError before any launch: there is no fallback to the
+    plain version."""
     diag, offp = captured[("fused_factor", "nb=6")]
     a = captured[("fused_structured_round", "nb=9,r=9")]
+    k2 = captured[("fused_admm_round", "rough")]
     cut = lambda t: t[:, :3].contiguous()  # noqa: E731
+    bad_coef = fused_rounds.coll_coef_from_rows(k2[0]).clone()
+    bad_coef[:, :, 0, 2] = 0.5
     calls = {
+        "fused_admm_round[cc (N, 2, 3, B)]": lambda: (
+            fused_rounds.fused_admm_round(
+                torch.cat([k2[0], k2[0][:, :, :1]], 2).contiguous(),
+                *k2[1:])),
+        "collision_rows[kappa in a collision row]": lambda: (
+            fused_rounds.collision_rows(bad_coef)),
         "fused_factor[nb=5]": lambda: fused_rounds.fused_factor(
             diag[:, :5, :5].contiguous(), offp[:, :5, :5].contiguous()),
         "fused_structured_round[nb=9,r=3]": lambda: (
@@ -639,8 +716,7 @@ def drive_variants(gm, scs, cfg, device="cuda") -> dict:
         emit(report)
         if ok_fraction != 1.0:
             raise AssertionError(f"{name}: ok_fraction {ok_fraction} != 1.0")
-        need = ["fused_factor[nb=9]", "fused_structured_round[nb=9,r=9]"] \
-            if name == "tension" else []
+        need = VARIANT_KEYS.get(name, [])
         idle = [k for k in ("fused_factor", "fused_admm_round",
                             "fused_structured_round") if not launches[k]]
         idle += [k for k in need if not by_shape.get(k)]
@@ -720,8 +796,12 @@ def check_golden(cfg, device="cuda"):
     """The card's results on the fixtures' 8 scenarios against the JAX
     package's stored results, at golden.TOLERANCES (TENSION's l at
     golden.FIXTURE_TOLERANCES; A*'s paths on the lanes of
-    golden.PATH_LANES), flags exactly: solve_batch at the default, TENSION
-    and A* configs, and the 3-cycle warm replanning stream."""
+    golden.PATH_LANES), flags exactly: solve_batch at the default, TENSION,
+    A* and rough configs, and the 3-cycle warm replanning stream. Then, as
+    a reading that is not held, the TENSION fixture solved with the plain
+    rounds on the card (QPSettings(fused_rounds=False)): a second witness
+    of how far TENSION's l lands from the fixture without the kernels'
+    summation order."""
     gm, scs, _ = scenarios.build_adversarial(golden.BATCH, device=device)
     failed = {}
     for name, kw in golden.CONFIGS.items():
@@ -741,8 +821,164 @@ def check_golden(cfg, device="cuda"):
                   diffs=diffs, failures=failures))
         if failures:
             failed[name] = failures
+        if name == "tension":
+            kernels_l = diffs["l"]
+    tcfg = dataclasses.replace(cfg, **golden.CONFIGS["tension"])
+    res = pipeline.solve_batch(gm, scs, tcfg, tcfg.qp_settings(
+        fused_rounds=False), device=device)
+    failures, diffs = golden.compare_fixture(
+        "tension", golden.arrays(res), golden.load(golden.FIXTURES["tension"]))
+    emit(dict(phase="golden", fixture="tension", rounds="plain",
+              reading=True, l=diffs["l"], l_kernels=kernels_l, diffs=diffs,
+              failures=failures))
     if failed:
         raise AssertionError(f"golden fixture mismatch: {failed}")
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rows(scs, sl):
+    return tree_map(lambda a: a[sl], scs)
+
+
+def drive_dist(gm, scs, cfg, device="cuda") -> dict:
+    """The sharded fleet path in a one-rank group (NCCL on the card, gloo on
+    the CPU) on 127.0.0.1: solve_sharded on the batch, counted, against
+    solve_batch on the same inputs (flags, counts and n_valid equal;
+    FleetStats equal to the result's counts); solve_streamed over
+    DIST_STREAM; replan_stream_sharded against replan_stream."""
+    n = dist.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                              process_id=0, device=device)
+    try:
+        mesh = dist.make_mesh(device)
+        want = pipeline.solve_batch(gm, scs, cfg, device=device)
+        kernels.reset_launches()
+        res, st = dist.solve_sharded(gm, scs, cfg, mesh)
+        launches = dict(kernels.launches)
+        by_shape = dict(kernels.shape_launches)
+        B = len(want.ok)
+        unequal = [f for f in golden.FLAG_FIELDS + golden.COUNT_FIELDS
+                   if not bool(torch.equal(getattr(res, f),
+                                           getattr(want, f)))]
+        stats = {f: float(getattr(st, f)) for f in (
+            "n_total", "n_ok", "n_blocked", "max_qp_iters", "mean_qp_iters")}
+        counted = dict(n_total=B, n_ok=int(res.ok.sum()),
+                       n_blocked=int(res.blocked.sum()),
+                       max_qp_iters=int(res.qp_iters.max()),
+                       mean_qp_iters=float(res.qp_iters.float().mean()))
+        m = res.mask
+        dx = float((res.x - want.x).abs()[m].max())
+        consumed = []
+        n_b, per = DIST_STREAM
+        total, secs, sps = dist.solve_streamed(
+            gm, (_rows(scs, slice(i * per, (i + 1) * per))
+                 for i in range(n_b)), cfg, mesh,
+            consume=lambda r: consumed.append(int(r.ok.sum())))
+        sharded = dataclasses.asdict(replan.replan_stream_sharded(
+            gm, scs, cfg, mesh, n_steps=DIST_REPLAN_CYCLES))
+        single = dataclasses.asdict(replan.replan_stream(
+            gm, scs, cfg, n_steps=DIST_REPLAN_CYCLES, device=device))
+    finally:
+        torch.distributed.destroy_process_group()
+    keys = ("n_steps", "n_total", "n_ok", "mean_iters", "mean_iters_first",
+            "mean_iters_rest")
+    report = dict(phase="dist", world_size=n, backend="nccl" if device ==
+                  "cuda" else "gloo", batch=B, unequal_fields=unequal,
+                  max_abs_dx=dx, fleet_stats=stats, counted=counted,
+                  launches=launches, shape_launches=by_shape,
+                  stream=dict(batches=n_b, per_batch=per,
+                              n_total=int(total.n_total),
+                              n_ok=int(total.n_ok), seconds=secs,
+                              solves_per_s=sps, consumed=consumed),
+                  replan_sharded={k: sharded[k] for k in keys + (
+                      "solves_per_s",)},
+                  replan_single={k: single[k] for k in keys + (
+                      "solves_per_s",)})
+    emit(report)
+    if unequal:
+        raise AssertionError(f"dist: solve_sharded differs from solve_batch "
+                             f"in {unequal}")
+    if stats != {k: float(v) for k, v in counted.items()}:
+        raise AssertionError(f"dist: FleetStats {stats} != {counted}")
+    idle = [k for k, c in launches.items() if not c]
+    if idle:
+        raise AssertionError(f"dist: launched no {idle}")
+    if int(total.n_total) != n_b * per or len(consumed) != n_b:
+        raise AssertionError(f"dist: stream of {int(total.n_total)} "
+                             f"scenarios, consume called {len(consumed)} "
+                             "times")
+    if any(sharded[k] != single[k] for k in keys):
+        raise AssertionError("dist: replan_stream_sharded differs from "
+                             "replan_stream")
+    return report
+
+
+def drive_cli(extra=(), batch: int = BATCH) -> dict:
+    """cli.main with --synthetic --profile --verbose-qp --batch, counted;
+    its output must hold a succeeded solve, every stage's time, a converged
+    trace and every scenario of the batch ok."""
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--profile", "--verbose-qp", "--batch",
+                str(batch), "--out", f"{tmp}/demo_path.png", *extra]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    text = buf.getvalue()
+    lines = text.splitlines()
+    need = ["solve: ok=True", f"batch {batch}: {batch}/{batch} ok",
+            "[pipeline] total"] + [f"  {st}: " for st in (
+                "prep", "smooth", "corridor", "post_smooth", "geometry",
+                "path_qp", "finalize")]
+    missing = [n for n in need if n not in text]
+    converged = any(ln.endswith("converged") for ln in lines)
+    emit(dict(phase="cli", argv=argv, seconds=secs, launches=launches,
+              missing=missing, converged_trace=converged,
+              output=lines[:60]))
+    if missing or not converged or "trace truncated" in text:
+        raise AssertionError(f"cli: missing {missing}, converged trace "
+                             f"{converged}")
+    idle = [k for k, c in launches.items() if not c]
+    if idle:
+        raise AssertionError(f"cli: launched no {idle}")
+    return launches
+
+
+def drive_pscan(gm, scs, cfg, device="cuda") -> dict:
+    """A reading of the plain rounds with the parallel-prefix solve
+    (QPSettings(fused_rounds=False, pscan=True)) on every 8th scenario of
+    the batch, against the same with the sequential solve: ok flags
+    equal."""
+    sub = _rows(scs, slice(None, None, len(scs.n_raw) // PSCAN_BATCH))
+    out, secs = {}, {}
+    for p in (False, True):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[p] = pipeline.solve_batch(gm, sub, cfg, cfg.qp_settings(
+            fused_rounds=False, pscan=p), device=device)
+        out[p].ok.sum().item()
+        secs[p] = time.perf_counter() - t0
+    a, b = out[False], out[True]
+    m = a.mask & b.mask
+    report = dict(phase="pscan", batch=len(a.ok),
+                  ok_sequential=int(a.ok.sum()), ok_pscan=int(b.ok.sum()),
+                  flags_equal=bool(torch.equal(a.ok, b.ok)),
+                  max_abs_dx=float((a.x - b.x).abs()[m].max()),
+                  max_iter_diff=int((a.qp_iters - b.qp_iters).abs().max()),
+                  seconds_sequential=secs[False], seconds_pscan=secs[True])
+    emit(report)
+    if not report["flags_equal"]:
+        raise AssertionError("pscan: ok flags differ from the sequential "
+                             "solve's")
+    return report
 
 
 def profile_main_path(gm, scs, cfg, wall_unprofiled: float):
@@ -811,13 +1047,16 @@ def main() -> int:
               seconds=time.perf_counter() - t0))
 
     captured = capture_inputs(gm, scs, cfg)
-    primary, worst = check_kernels(captured)
+    primary, worst, by_shape = check_kernels(captured)
     check_no_fallback(captured)
 
     report, launches = drive_main_path(gm, scs, cfg)
     drive_variants(gm, scs, cfg)
     drive_replan(gm, scs, cfg)
     check_golden(cfg)
+    drive_dist(gm, scs, cfg)
+    drive_cli()
+    drive_pscan(gm, scs, cfg)
     if "--profile" in sys.argv[1:]:
         profile_main_path(gm, scs, cfg,
                           statistics.median(report["seconds_runs"]))
@@ -829,7 +1068,8 @@ def main() -> int:
                          replaces=replaces, launches=launches[name],
                          max_abs_err=worst[name], ms=p["ms"],
                          plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
-                         bound_by=p["bound_by"], library_ms=None))
+                         bound_by=p["bound_by"], library_ms=None,
+                         by_shape=by_shape[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,17 @@ four Pallas kernels in interpret mode), the function the port computes:
 - ``jax_replan_b8.npz``: 3 cycles of the warm replanning stream at the
   default config, 1 m a cycle (``golden.replan_arrays``).
 
-:func:`write_fixtures` writes all three::
+``jax_rough_b8.npz`` (``solve_batch`` with ``rough_constraints_far_away``)
+is the exception: :func:`jax_rough_arrays` takes the JAX package's XLA
+path, the CPU default. Its TPU path fails all 8 scenarios under that
+setting, at max_iter in both passes with NaN paths, because its Pallas
+round kernel hard-codes the default collision rows of scenario 0's first
+knot at every knot (``tpu_pathopt/solver/fused_rounds.py:202-246``), so it
+iterates another operator than the one the XLA path factors and solves
+(``tests/test_torch_knobs.py`` shows the round). The port takes each knot's
+rows, as the XLA path does.
+
+:func:`write_fixtures` writes all four::
 
     JAX_PLATFORMS=cpu python -c "import sys; sys.path[:0] = ['.', 'tests']; \\
 import test_torch_fixtures as t; t.write_fixtures()"
@@ -93,13 +103,23 @@ def jax_replan_arrays() -> dict:
             scs, jpipe.QPWarmStart.cold(golden.BATCH, cfg))
 
 
+def jax_rough_arrays() -> dict:
+    """The JAX package's solve_batch on the golden batch under the rough
+    far-away rows, on its XLA path (see the module docstring), as the
+    rough fixture's flat dict."""
+    gm, scs, _ = bench.build_adversarial(golden.BATCH)
+    res = jpipe.solve_batch_jit(gm, scs, JaxConfig(**golden.CONFIGS["rough"]))
+    return golden.arrays(jax.tree_util.tree_map(np.asarray, res))
+
+
 def write_fixtures():
-    """(Re)write the TENSION, A* and replan fixtures from the JAX
+    """(Re)write the TENSION, A*, replan and rough fixtures from the JAX
     package."""
     for name in VARIANTS:
         np.savez_compressed(golden.FIXTURES[name],
                             **jax_variant_arrays(name)[0])
     np.savez_compressed(golden.FIXTURES["replan"], **jax_replan_arrays())
+    np.savez_compressed(golden.FIXTURES["rough"], **jax_rough_arrays())
 
 
 def assert_regenerates(got: dict, want: dict):
@@ -160,7 +180,12 @@ def test_replan_fixture_regenerates():
     assert_regenerates(jax_replan_arrays(), want)
 
 
-@pytest.mark.parametrize("name", VARIANTS + ("replan",))
+def test_rough_fixture_regenerates_on_the_xla_path():
+    want = golden.load(golden.FIXTURES["rough"])
+    assert_regenerates(jax_rough_arrays(), want)
+
+
+@pytest.mark.parametrize("name", VARIANTS + ("replan", "rough"))
 def test_fixtures_are_all_ok(name):
     """Every stored scenario (every cycle's, for the stream) succeeded in
     the JAX package."""

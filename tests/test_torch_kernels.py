@@ -353,10 +353,10 @@ def k2_case():
         lane(ube), lane(rk), lane(re), es, lane(qp.p_diag), lane(v),
         lane(zk), lane(ze), lane(yk), lane(ye), iters=iters, alpha=ST.alpha,
         sigma=ST.sigma, interpret=True)
-    g = np.asarray(geom)[0]
-    args = ((float(g[0]), float(g[1])), t(ci_l), t(wp_l), t(lane(qp.t_prev)),
-            t(lane(lbk)), t(lane(ubk)), t(lane(lbe)), t(lane(ube)),
-            t(lane(rk)), t(lane(re)), t(qp.end_idx).to(torch.int32),
+    args = (fused_rounds.collision_rows(t(qp.coll_coef))[0], t(ci_l),
+            t(wp_l), t(lane(qp.t_prev)), t(lane(lbk)), t(lane(ubk)),
+            t(lane(lbe)), t(lane(ube)), t(lane(rk)), t(lane(re)),
+            t(qp.end_idx).to(torch.int32),
             t(lane(qp.p_diag)), t(lane(v)), t(lane(zk)), t(lane(ze)),
             t(lane(yk)), t(lane(ye)), iters, ST.alpha, ST.sigma)
     return args, want

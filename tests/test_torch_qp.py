@@ -236,6 +236,18 @@ def test_structured_operators_match_jax():
 
 
 def test_pscan_is_not_ported_yet(path_qps):
-    with pytest.raises(NotImplementedError):
-        path_solver.solve_path_qp_batched(path_qps[1],
-                                          settings=QPSettings(pscan=True))
+    """QPSettings.pscan, once a raise, now selects the parallel-prefix solve
+    of the plain rounds: the path QPs solve as with the sequential sweeps
+    and as the JAX package's pscan rounds do (flags equal, iterations
+    within one interval, v at the rounds' 5e-3)."""
+    qp_j, qp = path_qps
+    st = QPSettings(fused_rounds=False, pscan=True)
+    got = path_solver.solve_path_qp_batched(qp, settings=st)
+    seq = path_solver.solve_path_qp_batched(
+        qp, settings=dataclasses.replace(st, pscan=False))
+    want = jpath_solver.solve_path_qp_batched(
+        qp_j, settings=JaxSettings(fused_rounds=False, pscan=True))
+    assert_solutions_agree(got, want, 5e-3)
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  seq.converged.numpy())
+    np.testing.assert_allclose(got.v.numpy(), seq.v.numpy(), atol=5e-3)

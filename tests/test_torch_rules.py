@@ -45,14 +45,17 @@ def port_modules():
 def test_every_port_module_imports_without_jax_gpu_nvcc_or_triton():
     """A fresh interpreter imports every module of the port with PATH and
     CUDA_HOME pointing nowhere; JAX, Flax, the JAX package and triton stay
-    out of sys.modules and no kernel library is built or loaded."""
+    out of sys.modules, and so do matplotlib and PIL (the card's machine
+    has neither: viz and the CLI import them where they draw or read a
+    PNG), and no kernel library is built or loaded."""
     code = (
         "import importlib, json, sys\n"
         f"mods = {port_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
         "from tpu_pathopt_torch import kernels\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tpu_pathopt', 'triton', 'bench'))\n"
+        "('jax', 'jaxlib', 'flax', 'tpu_pathopt', 'triton', 'bench', "
+        "'matplotlib', 'PIL'))\n"
         "print(json.dumps(dict(n=len(mods), bad=bad, "
         "lib=kernels._lib is not None)))\n")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent",
@@ -116,6 +119,34 @@ def test_replanning_and_variant_entry_points_need_cuda_too():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_fleet_cli_and_native_entry_points_need_cuda_too():
+    """The sharded fleet path, the CLI without --cpu and the native map
+    loader raise without a GPU unless told the CPU; init_distributed raises
+    before it contacts any coordinator."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import numpy as np_
+    from tpu_pathopt_torch import cli, dist, replan
+    from tpu_pathopt_torch.runtime import native
+    gm, scs, _ = scenarios.build_adversarial(4, device="cpu")
+    cfg = PlannerConfig()
+    cpu_mesh = dist.make_mesh(device="cpu")
+    calls = [lambda: dist.make_mesh(),
+             lambda: dist.init_distributed("127.0.0.1:1", num_processes=2,
+                                           process_id=0),
+             lambda: dist.solve_sharded(gm, scs, cfg, dist.Mesh(
+                 0, 1, torch.device("cuda"))),
+             lambda: replan.replan_stream_sharded(
+                 gm, scs, cfg, dist.Mesh(0, 1, torch.device("cuda")),
+                 n_steps=1),
+             lambda: cli.main(["--synthetic", "--small"]),
+             lambda: native.build_map_native(np_.zeros((8, 8), bool))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert cpu_mesh.device.type == "cpu"
 
 
 def field_defaults(cls):

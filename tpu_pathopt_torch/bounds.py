@@ -86,15 +86,29 @@ def update_bounds(gm: maps.GridMap, xs: splines.CubicSpline,
     """Per-knot corridor at the front/rear axle centers projected onto the
     spline (updateBoundsImproved) + blocked horizon truncation.
     ``with_center`` also fills the center-state corridor."""
-    if config.directional_prescan_fallback:
-        raise NotImplementedError(
-            "directional_prescan_fallback is not ported yet")
     B, N = ref.x.shape
     return _update_bounds_impl(
         gm, xs, ys, ref,
         front_len=torch.full((B, N), config.front_length, device=ref.x.device),
         rear_len=torch.full((B, N), config.rear_length, device=ref.x.device),
         config=config, with_center=with_center)
+
+
+def update_bounds_on_input_states(gm: maps.GridMap, xs: splines.CubicSpline,
+                                  ys: splines.CubicSpline, ref: RefStates,
+                                  input_d_heading,
+                                  config: PlannerConfig) -> CorridorBounds:
+    """Bound re-extraction around a solved path (updateBoundsOnInputStates,
+    reference_path_impl.cpp:117-175): :func:`update_bounds` with the axle
+    offsets shrunk by the input path's heading error,
+    L (1 - cos(d_heading)) (:129-130), and the center corridor always
+    extracted (:161). The reference leaves its call commented out
+    (path_optimizer.cpp:148); it is an API here, as in the JAX package."""
+    one_minus_cos = 1.0 - torch.cos(input_d_heading)
+    return _update_bounds_impl(
+        gm, xs, ys, ref, front_len=config.front_length * one_minus_cos,
+        rear_len=config.rear_length * one_minus_cos, config=config,
+        with_center=True)
 
 
 def _update_bounds_impl(gm, xs, ys, ref: RefStates, front_len, rear_len,
@@ -113,6 +127,20 @@ def _update_bounds_impl(gm, xs, ys, ref: RefStates, front_len, rear_len,
     normal = (ref.heading + math.pi / 2)[:, None].expand_as(L)
     proj_s = splines.project_directional_newton(
         xs, ys, cx, cy, normal, max_s, hint, iters=cfg.newton_iters)
+    if cfg.directional_prescan_fallback:
+        # A bounded grid pre-scan (getDirectionalProjection, its minimum
+        # tracked) rescues a Newton run that diverged from the arc-length
+        # hint: keep whichever lands closer to the ray, a non-finite
+        # residual counting as infinitely far.
+        alt_s = splines.project_directional(
+            xs, ys, cx, cy, normal, max_s,
+            start_s=torch.clamp(ref.s[:, None].expand_as(L) - 5.0, min=0.0),
+            grid=0.5, max_grid_points=21, iters=cfg.newton_iters)
+        r_newton, r_alt = (
+            torch.nan_to_num(splines.directional_ray_residual(
+                xs, ys, cx, cy, normal, s), nan=torch.inf, posinf=torch.inf)
+            for s in (proj_s, alt_s))
+        proj_s = torch.where(r_alt < r_newton, alt_s, proj_s)
     px = splines.evaluate(xs, proj_s)
     py = splines.evaluate(ys, proj_s)
     # Clearance at the projected points, with the *state* heading (:206).

@@ -12,9 +12,14 @@
 //   v    = alpha vt + (1 - alpha) v
 //   zt   = alpha A vt + (1 - alpha) z + y / rho,  z = clip(zt, lb, ub),
 //   y    = rho (zt - z)
-// A is the path QP's fixed structure: 3 transition rows per knot
-// (-v_i[0:3] + Tprev_i v_{i-1}), 1 kappa row, the collision rows
-// v0 + lf v1 + v4 and v0 + lr v1 + v5, and the 2 end rows v[end_idx][0:2].
+// A is the path QP's structure: 3 transition rows per knot
+// (-v_i[0:3] + Tprev_i v_{i-1}), 1 kappa row, the two collision rows
+// f0 v0 + f1 v1 + v4 and r0 v0 + r1 v1 + v5 with each knot's own
+// coefficients (cc, 4 floats a knot: (1, lf) and (1, lr) at the default
+// config, (1, 0) and (0, 0) on the rough far-away knots), and the 2 end
+// rows v[end_idx][0:2]. The Pallas kernel takes one (lf, lr) for the whole
+// batch and so iterates another operator than the one factored wherever
+// the rows differ by knot.
 // After the iterations it writes per scenario res = [pri, dua,
 // max(|Av|, |z|), max(|Pv|, |A^T y|)] on the final iterate. The sweeps run
 // in the reassociated order of btri_sweep.cuh (G_i = Cinv_i W_i, one matvec
@@ -35,11 +40,12 @@
 // G_i = Cinv_i W_i, H_i = Cinv_i^T W_{i+1}^T into shared memory once:
 // (2 x 36 + 2 x 6 + 21 + 18) floats x 128 knots + 48 = 63,168 bytes, so two
 // CTAs take 124 KB of the SM's 228 KB. Thread i keeps knot i's v, z, y,
-// rho, lb and ub in registers for the whole launch. The rhs, A vt, the
-// projection, the dual update and the residuals run in parallel over knots,
-// exchanging neighbour vectors through shared memory between barriers; the
-// residuals end in a warp-shuffle and shared-memory max reduction that
-// propagates NaN as jnp.max does. Only the sweeps are serial, on lanes 0-5
+// rho, lb, ub and collision coefficients in registers for the whole
+// launch (only its own knot's rows use them, so no shared memory). The
+// rhs, A vt, the projection, the dual update and the residuals run in
+// parallel over knots, exchanging neighbour vectors through shared memory
+// between barriers; the residuals end in a warp-shuffle and shared-memory
+// max reduction that propagates NaN as jnp.max does. Only the sweeps are serial, on lanes 0-5
 // of warp 0, one row per lane. Nothing is written to device memory before
 // the last iteration ends.
 #include "btri_sweep.cuh"
@@ -54,6 +60,7 @@ constexpr int kTpFloats = 3 * NB;
 constexpr int kResidualFloats = 6 * kMaxRoundWarps;
 
 struct PathArgs {
+  const float* cc;    // (N, 2, 2, B) collision rows: [row][v0, v1]
   const float* Ci;    // (N, 6, 6, B)
   const float* Wp;    // (N, 6, 6, B), Wp[0] = 0
   const float* tp;    // (N, 3, 6, B) transition blocks on knot i-1
@@ -72,15 +79,21 @@ struct PathArgs {
   float* ye;
   float* res;         // (4, B)
   int n, batch, iters;
-  float alpha, one_minus_alpha, sigma, lf, lr;
+  float alpha, one_minus_alpha, sigma;
+};
+
+// Knot i's collision rows: f0 v0 + f1 v1 + v4 and r0 v0 + r1 v1 + v5.
+struct CollRows {
+  float f0, f1, r0, r1;
 };
 
 // (A^T [w; we])_i without the share of knot i+1's transition rows.
-__device__ __forceinline__ void at_mul_own(const float w[NB], float lf,
-                                           float lr, bool is_end, float we0,
-                                           float we1, float out[NB]) {
-  float o0 = -w[0] + w[4] + w[5];
-  float o1 = -w[1] + lf * w[4] + lr * w[5];
+__device__ __forceinline__ void at_mul_own(const float w[NB],
+                                           const CollRows& c, bool is_end,
+                                           float we0, float we1,
+                                           float out[NB]) {
+  float o0 = -w[0] + c.f0 * w[4] + c.r0 * w[5];
+  float o1 = -w[1] + c.f1 * w[4] + c.r1 * w[5];
   if (is_end) {
     o0 = o0 + we0;
     o1 = o1 + we1;
@@ -108,8 +121,9 @@ __device__ __forceinline__ void store_trans_contrib(const float* tp, float* X,
 }
 
 // Rows of A v at knot i given v_i and v_{i-1} (zero before knot 0).
-__device__ __forceinline__ void a_mul_knot(const float* tp, int n, float lf,
-                                           float lr, const float v[NB],
+__device__ __forceinline__ void a_mul_knot(const float* tp, int n,
+                                           const CollRows& c,
+                                           const float v[NB],
                                            const float vp[NB], float z[NB]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -119,8 +133,8 @@ __device__ __forceinline__ void a_mul_knot(const float* tp, int n, float lf,
     z[r] = -v[r] + ctr;
   }
   z[3] = v[2];
-  z[4] = v[0] + lf * v[1] + v[4];
-  z[5] = v[0] + lr * v[1] + v[5];
+  z[4] = c.f0 * v[0] + c.f1 * v[1] + v[4];
+  z[5] = c.r0 * v[0] + c.r1 * v[1] + v[5];
 }
 
 __global__ void __launch_bounds__(kMaxRoundThreads)
@@ -145,7 +159,11 @@ fused_admm_round_kernel(PathArgs p) {
   float ze0 = p.ze[e2(0)], ze1 = p.ze[e2(1)];
   float ye0 = p.ye[e2(0)], ye1 = p.ye[e2(1)];
   const float alpha = p.alpha, oma = p.one_minus_alpha, sigma = p.sigma;
-  const float lf = p.lf, lr = p.lr;
+  CollRows cr{0.f, 0.f, 0.f, 0.f};
+  if (own) {
+    const size_t c0 = static_cast<size_t>(i) * 4 * B + b;
+    cr = CollRows{p.cc[c0], p.cc[c0 + B], p.cc[c0 + 2 * B], p.cc[c0 + 3 * B]};
+  }
 
   // ---- load the scenario once: the blocks, then knot i's vectors ----
   if (own) {
@@ -178,7 +196,7 @@ fused_admm_round_kernel(PathArgs p) {
     __syncthreads();
     if (own) {
       float rhs[NB];
-      at_mul_own(w, lf, lr, is_end, re0 * ze0 - ye0, re1 * ze1 - ye1, rhs);
+      at_mul_own(w, cr, is_end, re0 * ze0 - ye0, re1 * ze1 - ye1, rhs);
       if (i < n - 1) {
 #pragma unroll
         for (int c = 0; c < NB; ++c) rhs[c] = rhs[c] + S.X[c * n + i + 1];
@@ -200,7 +218,7 @@ fused_admm_round_kernel(PathArgs p) {
         vt[c] = S.D[i * NB + c];
         vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
       }
-      a_mul_knot(tp_s, n, lf, lr, vt, vp, zt);
+      a_mul_knot(tp_s, n, cr, vt, vp, zt);
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
         v[c] = alpha * vt[c] + oma * v[c];
@@ -237,8 +255,8 @@ fused_admm_round_kernel(PathArgs p) {
     float vp[NB], av[NB], aty[NB];
 #pragma unroll
     for (int c = 0; c < NB; ++c) vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
-    a_mul_knot(tp_s, n, lf, lr, v, vp, av);
-    at_mul_own(yk, lf, lr, is_end, ye0, ye1, aty);
+    a_mul_knot(tp_s, n, cr, v, vp, av);
+    at_mul_own(yk, cr, is_end, ye0, ye1, aty);
     if (i < n - 1) {
 #pragma unroll
       for (int c = 0; c < NB; ++c) aty[c] = aty[c] + S.X[c * n + i + 1];
@@ -299,12 +317,13 @@ fused_admm_round_kernel(PathArgs p) {
 // other size, n above 256 or a batch of 0 returns cudaErrorInvalidValue
 // without launching.
 extern "C" int pathopt_fused_admm_round(
-    const float* Ci, const float* Wp, const float* tp, const float* lbk,
-    const float* ubk, const float* lbe, const float* ube, const float* rk,
-    const float* re, const int* end_idx, const float* pd, float* v,
-    float* zk, float* ze, float* yk, float* ye, float* res, int n, int batch,
+    const float* cc, const float* Ci, const float* Wp, const float* tp,
+    const float* lbk, const float* ubk, const float* lbe, const float* ube,
+    const float* rk, const float* re, const int* end_idx, const float* pd,
+    float* v, float* zk, float* ze, float* yk, float* ye, float* res, int n,
+    int batch,
     int iters, int smem_bytes, float alpha, float one_minus_alpha,
-    float sigma, float lf, float lr, void* stream) {
+    float sigma, void* stream) {
   using namespace pathopt;
   const size_t need =
       round_smem_bytes(n, NB, kTpFloats, kResidualFloats);
@@ -314,9 +333,9 @@ extern "C" int pathopt_fused_admm_round(
       fused_admm_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  PathArgs a{Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
+  PathArgs a{cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
              v, zk, ze, yk, ye, res, n, batch, iters, alpha,
-             one_minus_alpha, sigma, lf, lr};
+             one_minus_alpha, sigma};
   fused_admm_round_kernel<<<batch, round_threads(n), smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(a);
   return launch_status();

@@ -7,6 +7,11 @@ them, on the CPU and the card:
   ``PlannerConfig`` (TENSION2 + DP);
 - ``jax_tension_b8.npz``, ``jax_astar_b8.npz``: ``solve_batch`` under the
   configurations of :data:`CONFIGS` (TENSION + DP, TENSION2 + A*);
+- ``jax_rough_b8.npz``: ``solve_batch`` with
+  ``rough_constraints_far_away`` (the reference's rough rows beyond
+  ``precise_planning_length``), from the JAX package's XLA path: its TPU
+  path's round kernel hard-codes the default collision rows and fails
+  every scenario there;
 - ``jax_replan_b8.npz``: :data:`REPLAN_CYCLES` cycles of the warm
   replanning stream at the default config, advancing
   :data:`REPLAN_DS` m a cycle: each cycle's result and the start pose it
@@ -34,10 +39,12 @@ FIXTURE = TESTDATA / "jax_adversarial_b8.npz"
 FIXTURES = {"default": FIXTURE,
             "tension": TESTDATA / "jax_tension_b8.npz",
             "astar": TESTDATA / "jax_astar_b8.npz",
+            "rough": TESTDATA / "jax_rough_b8.npz",
             "replan": TESTDATA / "jax_replan_b8.npz"}
 # PlannerConfig keyword arguments of each fixture (both packages).
 CONFIGS = {"default": {}, "tension": {"smoothing_method": "TENSION"},
-           "astar": {"corridor_method": "ASTAR"}, "replan": {}}
+           "astar": {"corridor_method": "ASTAR"},
+           "rough": {"rough_constraints_far_away": True}, "replan": {}}
 BATCH = 8
 REPLAN_CYCLES = 3
 REPLAN_DS = 1.0

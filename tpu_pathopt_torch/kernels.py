@@ -133,7 +133,7 @@ def lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
         L.pathopt_fused_admm_round.argtypes = (
-            [p] * 17 + [i] * 4 + [f] * 5 + [p])
+            [p] * 18 + [i] * 4 + [f] * 3 + [p])
         L.pathopt_fused_structured_round.argtypes = (
             [p] * 11 + [i] * 6 + [f] * 3 + [p])
         L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]

@@ -27,7 +27,9 @@ class QPSettings:
     scaling_iters: int = 10
     check_every: int = 25
     adaptive_rho: bool = True
-    # Parallel-prefix block-bidiagonal solves: not ported yet (raises).
+    # Parallel-prefix block-tridiagonal solves in the plain path-QP rounds
+    # (btridiag.solve_batched_pscan); the kernels and the structured
+    # solver do not read it.
     pscan: bool = False
     # Run each check_every-iteration ADMM round, and every factorization,
     # through the CUDA kernels of ``solver.fused_rounds``. False runs the

@@ -117,8 +117,6 @@ def solve_structured_batched(qp: BlockBandedQP, v0=None, y0=None,
     otherwise through the plain PyTorch rounds. Residuals, termination and
     the adaptive-rho logic run outside the kernel."""
     st = settings
-    if st.pscan:
-        raise NotImplementedError("QPSettings.pscan is not ported yet")
     B, N, nb = qp.q.shape
     r = qp.r
     dt, dev = qp.q.dtype, qp.q.device

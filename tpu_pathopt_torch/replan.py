@@ -23,7 +23,8 @@ import torch
 from tpu_pathopt_torch import maps, pipeline
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.qp.admm import QPSettings
-from tpu_pathopt_torch.torchutil import resolve_device, take, to_device
+from tpu_pathopt_torch.torchutil import resolve_device, take, to_device, \
+    tree_map
 
 # jnp.interp's test for a zero-width interval: the float32 spacing of eps.
 _DX0 = float(np.spacing(np.finfo(np.float32).eps))
@@ -109,19 +110,21 @@ class ReplanStats:
     mean_iters_rest: float       # cycles 1.. (warm when enabled)
 
 
-def _drive_stream(step, scs, warm, n_steps: int, consume) -> ReplanStats:
+def _drive_stream(step, scs, warm, n_steps: int, consume,
+                  n_scenarios: int | None = None) -> ReplanStats:
     """Run ``n_steps`` cycles back to back (each depends on the previous),
     hand each cycle's result to ``consume`` while the device works on the
     next, and wait for the device once, on the last cycle's statistics;
     moving the statistics to the host stays outside the timed window.
 
     ``step(scs, warm) -> (PathResult, warm, scs, (n_ok, sum_iters))`` with
-    the statistics as 0-d device tensors. The QP solvers still read two
-    values to the host at the end of every round, so a cycle is not free
-    of synchronisation; the stream adds none of its own."""
+    the statistics as 0-d device tensors, over ``n_scenarios`` scenarios
+    (default: the batch's). The QP solvers still read two values to the
+    host at the end of every round, so a cycle is not free of
+    synchronisation; the stream adds none of its own."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    B = int(scs.n_raw.shape[0])
+    B = int(scs.n_raw.shape[0]) if n_scenarios is None else n_scenarios
     n_oks, sum_iters = [], []
     prev = None
     t0 = time.perf_counter()
@@ -166,3 +169,37 @@ def replan_stream(gm: maps.GridMap, scs: pipeline.Scenario,
         return res, warm_o, scs_o, (res.ok.sum(), res.qp_iters.sum())
 
     return _drive_stream(step, scs, warm, n_steps, consume)
+
+
+def replan_stream_sharded(gm: maps.GridMap, scs: pipeline.Scenario,
+                          config: PlannerConfig, mesh,
+                          settings: QPSettings | None = None,
+                          n_steps: int = 30, advance_ds: float = 1.0,
+                          consume=None) -> ReplanStats:
+    """:func:`replan_stream` over a ``dist.Mesh``: every rank is given the
+    same global batch, and each owns its rows (``dist.shard_rows``) and
+    their warm state across the cycles; the only traffic between ranks is
+    the ``all_reduce`` of each cycle's fleet scalars (scenarios ok, ADMM
+    iterations), so the statistics are the whole batch's, equal on every
+    rank. ``consume`` gets this rank's rows. The batch must divide over the
+    mesh: pad with ``dist.pad_batch`` first if it does not."""
+    from tpu_pathopt_torch import dist
+
+    B = int(scs.n_raw.shape[0])
+    if B % mesh.size:
+        raise ValueError(f"batch {B} must divide the mesh size {mesh.size}; "
+                         "pad with dist.pad_batch")
+    dev = resolve_device(mesh.device)
+    gm = to_device(gm, dev)
+    rows = dist.shard_rows(B, mesh)
+    local = to_device(tree_map(lambda a: a[rows], scs), dev)
+    warm = pipeline.QPWarmStart.cold(int(local.n_raw.shape[0]), config, dev)
+
+    def step(scs_i, warm_i):
+        res, warm_o, scs_o = replan_step(gm, scs_i, warm_i, config, settings,
+                                         advance_ds, True, dev)
+        sums = dist.fleet_reduce(torch.stack([res.ok.sum(),
+                                         res.qp_iters.long().sum()]), mesh)
+        return res, warm_o, scs_o, (sums[0], sums[1])
+
+    return _drive_stream(step, local, warm, n_steps, consume, n_scenarios=B)

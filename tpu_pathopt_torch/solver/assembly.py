@@ -132,8 +132,25 @@ def assemble_path_qp(ref_s, ref_k, ref_heading_last, input_l, input_e,
     coll_lb = torch.stack([f_lb, r_lb], dim=-1)
     coll_ub = torch.stack([f_ub, r_ub], dim=-1)
     if config.rough_constraints_far_away:
-        raise NotImplementedError(
-            "rough_constraints_far_away is not ported yet")
+        # Beyond precise_planning_length the reference keeps one
+        # center-corridor row per knot with one slack (base_solver.cpp:25-37).
+        # In the fixed 2-row layout row 0 becomes that row (l + s_front in
+        # the center soft bounds) and row 1 pins the unused rear slack to 0.
+        if center_lb is None or center_ub is None:
+            raise ValueError("rough_constraints_far_away needs center bounds "
+                             "(update_bounds(..., with_center=True))")
+        rough = (ref_s >= config.precise_planning_length) & knot_mask
+        rough_coef = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                                   [0.0, 0.0, 0.0, 0.0, 0.0, 1.0]],
+                                  dtype=dt, device=dev)
+        coll_coef = torch.where(rough[..., None, None], rough_coef, coll_coef)
+        c_lb, c_ub = soft_bounds(center_lb, center_ub,
+                                 config.expected_safety_margin)
+        zero = torch.zeros_like(c_lb)
+        coll_lb = torch.where(rough[..., None],
+                              torch.stack([c_lb, zero], dim=-1), coll_lb)
+        coll_ub = torch.where(rough[..., None],
+                              torch.stack([c_ub, zero], dim=-1), coll_ub)
     coll_lb = torch.where(knot_mask[..., None], coll_lb, 0.0)
     coll_ub = torch.where(knot_mask[..., None], coll_ub, 0.0)
 
@@ -227,7 +244,7 @@ def normal_blocks(qp: PathQP, rho_knot, rho_end, sigma):
     Returns (diag (B, N, 6, 6), off (B, N-1, 6, 6)) with off[i] = M[i+1, i]."""
     B, N = qp.p_diag.shape[:2]
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
-    tc = torch.as_tensor(T_CUR, device=dev)
+    tc = torch.as_tensor(T_CUR, dtype=dt, device=dev)
     rho_t = rho_knot[..., :3]
     diag = torch.diag_embed(qp.p_diag + sigma)
     diag = diag + torch.einsum("ij,bni,ik->bnjk", tc, rho_t, tc)

@@ -8,8 +8,10 @@
   the counterpart of the JAX ``btridiag``, used when ``fused_rounds`` is
   off, and makes a block that is not positive definite NaN).
 - K2 :func:`fused_admm_round` (``csrc/fused_admm_round.cu``): ``iters``
-  ADMM iterations of the lateral path QP plus its four residuals. Plain
-  version: the plain path-QP step looped ``iters`` times.
+  ADMM iterations of the lateral path QP plus its four residuals, with each
+  knot's collision rows (:func:`collision_rows`; the Pallas kernel
+  hard-codes one knot's). Plain version: the plain path-QP step looped
+  ``iters`` times.
 - K3 :func:`fused_structured_round` (``csrc/fused_structured_round.cu``):
   ``iters`` ADMM iterations of a generic block-banded QP. Plain version: the
   plain structured step looped ``iters`` times.
@@ -207,21 +209,49 @@ def fused_factor(diag, offp):
 
 # --------------------------------- K2 ---------------------------------------
 
-def path_coll_coef(lf, lr, B, N, dtype, device):
-    """The path QP's collision-row blocks for front/rear arms lf, lr."""
-    coll = torch.tensor([[1.0, lf, 0.0, 0.0, 1.0, 0.0],
-                         [1.0, lr, 0.0, 0.0, 0.0, 1.0]],
-                        dtype=dtype, device=device)
-    return coll.expand(B, N, 2, 6)
+def collision_rows(coll_coef):
+    """The collision rows' coefficients K2 takes, from a path QP's
+    ``coll_coef`` (B, N, 2, 6): those of l and e_psi in each row, lane-major
+    (N, 2, 2, B), one set per knot and scenario; and the key K2's launches
+    are counted under, ``"nb=6"`` where every knot of every scenario has the
+    same rows, ``"nb=6,rough"`` where they differ by knot (the rough
+    far-away rows). K2's rows have no kappa or u term and one slack each,
+    s_front in row 0 and s_rear in row 1, with coefficient 1; any other
+    ``coll_coef`` raises ValueError, on any device, so no round iterates an
+    operator other than the one factored. One host read."""
+    if coll_coef.dim() != 4 or tuple(coll_coef.shape[2:]) != (2, 6):
+        raise ValueError(f"coll_coef: shape {tuple(coll_coef.shape)}, "
+                         "expected (B, N, 2, 6)")
+    rows = coll_coef[..., :2]
+    slack = torch.eye(2, dtype=coll_coef.dtype, device=coll_coef.device)
+    ok = (coll_coef[..., 2:4] == 0).all() & (coll_coef[..., 4:6]
+                                              == slack).all()
+    ok, uniform = torch.stack([ok, (rows == rows[:1, :1]).all()]).tolist()
+    if not ok:
+        raise ValueError("coll_coef: K2 takes collision rows with zero kappa "
+                         "and u columns and the slack columns [[1, 0], "
+                         "[0, 1]]")
+    return lane(rows.to(F32)), "nb=6" if uniform else "nb=6,rough"
+
+
+def coll_coef_from_rows(cc):
+    """The path QP's ``coll_coef`` (B, N, 2, 6) that :func:`collision_rows`
+    reduced to ``cc`` (N, 2, 2, B)."""
+    c = unlane(cc)
+    B, N = c.shape[:2]
+    slack = torch.eye(2, dtype=c.dtype, device=c.device).expand(B, N, 2, 2)
+    return torch.cat([c, torch.zeros_like(c), slack], dim=-1)
 
 
 def path_admm_step(ops, Ci, W, lb_knot, ub_knot, lb_end, ub_end, rk, re,
-                   state, alpha, sigma):
+                   state, alpha, sigma, solve=None):
     """One relaxed-ADMM iteration of the path QP, batch-leading. ``ops`` is
-    (t_prev, coll_coef, end_idx); Ci (B, N, 6, 6), W (B, N-1, 6, 6)."""
+    (t_prev, coll_coef, end_idx); Ci (B, N, 6, 6), W (B, N-1, 6, 6);
+    ``solve`` the block-tridiagonal solve (``btridiag.solve_batched`` by
+    default)."""
     v, zk, ze, yk, ye = state
     rhs = sigma * v + assembly.at_mul_blocks(*ops, rk * zk - yk, re * ze - ye)
-    vt = btridiag.solve_batched(Ci, W, rhs)
+    vt = (solve or btridiag.solve_batched)(Ci, W, rhs)
     ztk, zte = assembly.a_mul_blocks(*ops, vt)
     v_new = alpha * vt + (1 - alpha) * v
     ztmp_k = alpha * ztk + (1 - alpha) * zk + yk / rk
@@ -251,13 +281,11 @@ def path_residuals(ops, p_diag, v, zk, ze, yk, ye):
     ])
 
 
-def admm_round_plain(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
-                     pd, v, zk, ze, yk, ye, iters, alpha, sigma):
+def admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
+                     pd, v, zk, ze, yk, ye, iters, alpha, sigma, key=None):
     """K2's plain version, same arguments and layout as
-    :func:`fused_admm_round`."""
-    N, _, _, B = Ci.shape
-    ops = (unlane(tp), path_coll_coef(geom[0], geom[1], B, N, Ci.dtype,
-                                      Ci.device), end_idx)
+    :func:`fused_admm_round` (``key`` unused)."""
+    ops = (unlane(tp), coll_coef_from_rows(cc), end_idx)
     Cb, Wb = unlane(Ci), unlane(Wp)[:, 1:]
     bnd = tuple(unlane(a) for a in (lbk, ubk, lbe, ube))
     rkb, reb = unlane(rk), unlane(re)
@@ -269,12 +297,14 @@ def admm_round_plain(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     return tuple(lane(a) for a in state) + (res,)
 
 
-def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
+def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
                      pd, v, zk, ze, yk, ye, iters: int, alpha: float,
-                     sigma: float):
+                     sigma: float, key: str = "nb=6"):
     """``iters`` ADMM iterations of the path QP in one launch (K2).
 
-    geom = (lf, lr), the collision rows' arms. Lane-major float32:
+    cc (N, 2, 2, B): each knot's collision rows, the coefficients of l and
+    e_psi in row 0 (+ s_front) and row 1 (+ s_rear), and ``key`` the launch
+    counter's key, both from :func:`collision_rows`. Lane-major float32:
     Ci/Wp (N, 6, 6, B), tp (N, 3, 6, B), lbk/ubk/rk/pd/v/zk/yk (N, 6, B),
     lbe/ube/re/ze/ye (2, B); end_idx (B,) int32, clamped into [0, N). Returns
     (v, zk, ze, yk, ye, res) with res (4, B) = per-scenario [pri_res,
@@ -282,15 +312,16 @@ def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     CUDA tensors N is at most 256 (:func:`check_round_fits`)."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
-        return admm_round_plain(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re,
+        return admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re,
                                 end_idx, pd, v, zk, ze, yk, ye, iters, alpha,
                                 sigma)
     N, _, _, B = Ci.shape
-    shapes = dict(Ci=(N, 6, 6, B), Wp=(N, 6, 6, B), tp=(N, 3, 6, B),
+    shapes = dict(cc=(N, 2, 2, B), Ci=(N, 6, 6, B), Wp=(N, 6, 6, B),
+                  tp=(N, 3, 6, B),
                   lbk=(N, 6, B), ubk=(N, 6, B), lbe=(2, B), ube=(2, B),
                   rk=(N, 6, B), re=(2, B), pd=(N, 6, B), v=(N, 6, B),
                   zk=(N, 6, B), ze=(2, B), yk=(N, 6, B), ye=(2, B))
-    args = dict(Ci=Ci, Wp=Wp, tp=tp, lbk=lbk, ubk=ubk, lbe=lbe, ube=ube,
+    args = dict(cc=cc, Ci=Ci, Wp=Wp, tp=tp, lbk=lbk, ubk=ubk, lbe=lbe, ube=ube,
                 rk=rk, re=re, pd=pd, v=v, zk=zk, ze=ze, yk=yk, ye=ye)
     for name, t in args.items():
         kernels.expect(name, t, shapes[name], F32, dev)
@@ -301,12 +332,12 @@ def fused_admm_round(geom, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     res = torch.empty((4, B), dtype=F32, device=dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_admm_round(
-        p(Ci), p(Wp), p(tp), p(lbk), p(ubk), p(lbe), p(ube), p(rk), p(re),
-        p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res), N, B,
-        int(iters), smem, float(alpha), float(1 - alpha), float(sigma),
-        float(geom[0]), float(geom[1]), kernels.stream_ptr(dev))
+        p(cc), p(Ci), p(Wp), p(tp), p(lbk), p(ubk), p(lbe), p(ube), p(rk),
+        p(re), p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res),
+        N, B, int(iters), smem, float(alpha), float(1 - alpha), float(sigma),
+        kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
-    kernels.count_launch("fused_admm_round", "nb=6")
+    kernels.count_launch("fused_admm_round", key)
     return v, zk, ze, yk, ye, res
 
 

@@ -297,6 +297,37 @@ def project(xs: CubicSpline, ys: CubicSpline, tx, ty, max_s, start_s=0.0,
     return project_newton(xs, ys, tx, ty, max_s, best, iters=iters)
 
 
+def project_directional(xs: CubicSpline, ys: CubicSpline, tx, ty, angle,
+                        max_s, start_s=0.0, grid: float = 1.0,
+                        max_grid_points: int = 256, iters: int = 20):
+    """Directional projection with a bounded grid pre-scan before the
+    Newton polish (getDirectionalProjection, tools.cpp:128-155): scan
+    ``max_grid_points`` candidates from ``start_s`` at ``grid`` spacing for
+    the least |signed ray distance|, then Newton from the winner. The
+    reference's scan never updates its minimum (tools.cpp:147); as in the
+    JAX package the minimum is tracked here. tx, ty, angle, max_s and
+    start_s share the spline's batch shape and any query shape after it."""
+    tx, ty, angle, max_s = (torch.as_tensor(a, dtype=torch.float32,
+                                            device=xs.s.device)
+                            for a in (tx, ty, angle, max_s))
+    offs = grid * torch.arange(max_grid_points, dtype=torch.float32,
+                               device=xs.s.device)
+    cand = torch.as_tensor(start_s, dtype=torch.float32,
+                           device=xs.s.device)[..., None] + offs
+    cand = cand.expand(max_s.shape + (max_grid_points,))
+    valid = cand <= max_s[..., None]
+    cand = torch.minimum(torch.clamp(cand, min=0.0), max_s[..., None])
+    cx = evaluate(xs, cand)
+    cy = evaluate(ys, cand)
+    ray = torch.abs(torch.sin(angle)[..., None] * (cx - tx[..., None])
+                    - torch.cos(angle)[..., None] * (cy - ty[..., None]))
+    ray = torch.where(valid, ray, torch.inf)
+    best = torch.gather(cand, -1, torch.argmin(ray, dim=-1,
+                                               keepdim=True))[..., 0]
+    return project_directional_newton(xs, ys, tx, ty, angle, max_s, best,
+                                      iters=iters)
+
+
 def directional_ray_residual(xs: CubicSpline, ys: CubicSpline, tx, ty, angle,
                              s):
     """|signed distance of the curve point at s from the ray through (tx, ty)
