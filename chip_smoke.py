@@ -34,7 +34,9 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
-   launched, every scenario succeeded and every output is finite;
+   launched, every scenario succeeded and every output is finite; then the
+   batch in a seeded random order, whose flags and counts must equal the
+   first run's once un-permuted (the paths' largest difference printed);
 4. ``variants``: the same batch under TENSION + DP, TENSION2 + A*, the
    rough far-away rows and the directional prescan fallback, counted the
    same way (K1 at nb 9 and K3 at (9, 9) must launch under TENSION, K4
@@ -47,23 +49,35 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    ``solve_batch_profiled`` stage times of one solve;
 6. ``golden``: solves the golden fixtures' 8 scenarios on the card and
    holds each result against the JAX package's stored one
-   (``tpu_pathopt_torch/testdata/``: the default, TENSION, A* and rough
-   configs and the 3-cycle replanning stream), and as a reading solves the
+   (``tpu_pathopt_torch/testdata/``: the default, TENSION at both
+   deviation weights, A* and rough configs and the 3-cycle replanning
+   stream), and as a reading solves the
    TENSION fixture with the plain rounds on the card
    (``QPSettings(fused_rounds=False)``), a second witness of its l;
-7. ``dist``: a one-rank NCCL group on 127.0.0.1: ``dist.solve_sharded``
+7. ``oracle``: each QP family of the main path (TENSION2, post, pass 2 of
+   the path QP) and the TENSION QP, rebuilt through the port's own stage
+   functions on the batch and solved as the pipeline solves them (K3, K2),
+   then in dense form on the card in float64 to eps 1e-6 (``qp/admm.py``):
+   that optimum x* is held to the NumPy oracle (``qp/oracle.py``) on 2
+   lanes of each lane class, and every lane the kernels' solver reports
+   converged is held to x* (feasibility and cost gap, ``certify``); the
+   float32 dense solver on the dense builder's TENSION2 QPs must agree
+   with the structured one in its flags and meet the cost-gap bound; a
+   pass-2 solution with one lane's l moved 0.1 m at one knot must fail;
+8. ``dist``: a one-rank NCCL group on 127.0.0.1: ``dist.solve_sharded``
    on the batch (counted; flags, counts and n_valid equal to
    ``solve_batch``'s, FleetStats equal to the result's counts),
    ``dist.solve_streamed`` over 4 batches of 64, and
    ``replan.replan_stream_sharded`` against ``replan.replan_stream`` over
    3 cycles;
-8. ``cli``: ``cli.main(["--synthetic", "--profile", "--verbose-qp",
+9. ``cli``: ``cli.main(["--synthetic", "--profile", "--verbose-qp",
    "--batch", "256"])`` on the card (counted), which must print a
-   succeeded solve, the stage times, a converged trace and 256/256 ok;
-9. ``pscan``: one solve of 32 scenarios with the plain rounds and the
+   succeeded solve, the stage times, a converged trace and 256/256 ok,
+   and the walkthrough ``examples/quickstart_torch.py`` on the card;
+10. ``pscan``: one solve of 32 scenarios with the plain rounds and the
    parallel-prefix solve, ``QPSettings(fused_rounds=False, pscan=True)``,
    whose ok flags must equal the sequential solve's;
-10. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
+11. prints the ``kernels`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs the main path once under
@@ -82,12 +96,15 @@ import contextlib
 import dataclasses
 import io
 import json
+import runpy
 import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,9 +113,13 @@ from tpu_pathopt_torch import (cli, collision, corridor, dist, golden,
                                kernels, maps, pipeline, profiling, replan,
                                scenarios)
 from tpu_pathopt_torch.config import PlannerConfig
-from tpu_pathopt_torch.qp import structured
+from tpu_pathopt_torch.qp import admm, oracle, structured
+from tpu_pathopt_torch.qp.admm import QPSettings
+from tpu_pathopt_torch.smoothing.post_smooth import build_post_structured
 from tpu_pathopt_torch.smoothing.tension import build_tension_qp_blocks
-from tpu_pathopt_torch.solver import fused_rounds
+from tpu_pathopt_torch.smoothing.tension2 import (build_tension2_qp,
+                                                  build_tension2_structured)
+from tpu_pathopt_torch.solver import assembly, fused_rounds
 from tpu_pathopt_torch.torchutil import tree_map
 
 BATCH = 256
@@ -782,14 +803,39 @@ def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
                   solves_per_s=len(res.ok) / statistics.median(walls),
                   ok_fraction=ok_fraction, rounds=stats, stage_ms=stage_ms,
                   mean_qp_iters=float(res.qp_iters.float().mean()),
-                  launches=launches, shape_launches=by_shape)
+                  launches=launches, shape_launches=by_shape,
+                  permuted=permuted_batch(gm, scs, cfg, res, device))
     emit(report)
     if ok_fraction != 1.0:
         raise AssertionError(f"ok_fraction {ok_fraction} != 1.0")
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
         raise AssertionError(f"the main path launched no {idle}")
+    if report["permuted"]["unequal"]:
+        raise AssertionError(f"permuted batch: {report['permuted']}")
     return report, launches
+
+
+def permuted_batch(gm, scs, cfg, res, device="cuda") -> dict:
+    """The batch solved again in a seeded random order (after the counted
+    run): flags and counts must equal ``res``'s once un-permuted; the
+    paths' largest difference is reported, and whether they are equal bit
+    for bit (each scenario's lane does not depend on its place in the
+    batch)."""
+    perm = torch.as_tensor(np.random.default_rng(11).permutation(
+        len(res.ok)), device=res.ok.device)
+    inv = torch.argsort(perm)
+    got = pipeline.solve_batch(gm, tree_map(lambda a: a[perm], scs), cfg,
+                               device=device)
+    unequal = [f for f in golden.FLAG_FIELDS + golden.COUNT_FIELDS
+               if not torch.equal(getattr(got, f)[inv], getattr(res, f))]
+    m = res.mask
+    diff = {f: float((getattr(got, f)[inv] - getattr(res, f)).abs()[m].max())
+            for f in golden.PATH_FIELDS}
+    return dict(unequal=unequal, max_abs_diff=diff,
+                bit_equal=all(torch.equal(getattr(got, f)[inv],
+                                          getattr(res, f))
+                              for f in golden.PATH_FIELDS))
 
 
 def check_golden(cfg, device="cuda"):
@@ -833,6 +879,285 @@ def check_golden(cfg, device="cuda"):
               failures=failures))
     if failed:
         raise AssertionError(f"golden fixture mismatch: {failed}")
+
+
+# --------------------------- the float64 oracle ------------------------------
+
+# The reference optimum x* of every QP family: the dense solver in float64
+# at eps 1e-6. On some lanes of the path QP its adaptive rho cycles between
+# two values a round apart and never meets eps 1e-6, as the NumPy oracle's
+# does there (17 of the 256 at a 3000-iteration cap in a CPU run,
+# tests/measure_qp_bounds.py). Those lanes are solved again with rho fixed
+# at 1 (ORACLE_FIXED), which converges on them. Fixed rho alone is no
+# yardstick: on the other lanes it converges far more slowly than the
+# adaptive rule.
+ORACLE_SETTINGS = QPSettings(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000)
+ORACLE_FIXED = dataclasses.replace(ORACLE_SETTINGS, adaptive_rho=False,
+                                   rho_bar=1.0)
+ORACLE_NUMPY_MAX_ITER = 4000  # the NumPy oracle's adaptive-rho attempt
+ORACLE_PER_CLASS = 2     # lanes of each lane class the NumPy oracle solves
+ORACLE_COST_RTOL = 1e-6  # the card's float64 cost against the NumPy oracle's
+ORACLE_THREADS = 8
+# Feasibility a kernel's solution is held to, abs + rel * ||A x*||_inf, and
+# its cost gap, cost(x) - cost(x*) <= max(abs, rel |cost(x*)|). The JAX
+# package's own bounds for the pass-2 QP (tests/test_parity_gridmap.py:
+# 258-275) are feasibility 5e-3 and a gap of max(1e-4, 5e-3 |cost*|). Where
+# the JAX package's own solutions exceed them, a family is held to what they
+# meet: its post-smoothing and TENSION solutions exceed 5e-3 feasibility on
+# the golden batch (6.3e-3, 7.7e-3), inside their termination band eps_abs +
+# eps_rel ||A x||_inf, so those families add the band's relative term
+# (tests/test_torch_smoothing_optimality.py); its pass 2 at 128 knots on this
+# batch, on the CPU, reaches feasibility 5.41e-3 (at most 1.70e-3 beyond the
+# band's relative term) and cost gaps up to 0.029 on lanes whose optimum
+# costs below 0.1 (pass 2 stops after one round from pass 1's warm start),
+# so pass 2 adds the band term and an absolute gap floor of 0.05 (the JAX
+# solutions' worst ratio to it 0.59; tests/measure_qp_bounds.py prints these
+# numbers, tests/test_torch_oracle_parity.py holds both packages to them).
+FEASIBILITY = {"tension2": (5e-3, 0.0), "post": (5e-3, 2e-3),
+               "path": (5e-3, 2e-3), "tension": (5e-3, 2e-3)}
+GAP = {"tension2": (1e-4, 5e-3), "post": (1e-4, 5e-3),
+       "path": (5e-2, 5e-3), "tension": (1e-4, 5e-3)}
+FAULT_DL = 0.1           # the fault: one lane's l moved this far at one knot
+
+
+def qp_cost(P, q, x):
+    """0.5 x^T P x + q^T x per lane (batch-leading)."""
+    return (0.5 * (x[..., None, :] @ P @ x[..., :, None])[..., 0, 0]
+            + (q * x).sum(-1))
+
+
+def certify(family: str, dense, x, x_star) -> dict:
+    """Per lane, x (B, nv) against the dense QPs (float64, batch-leading)
+    and their optimum x_star: the worst bound violation and its bound
+    (FEASIBILITY), and the cost gap and its bound."""
+    P, q, A, l, u = dense
+    x = x.to(P.dtype)
+    Ax = (A @ x[..., None])[..., 0]
+    a, r = FEASIBILITY[family]
+    c_star = qp_cost(P, q, x_star)
+    return dict(
+        violation=torch.maximum(l - Ax, Ax - u).amax(-1),
+        feas_bound=a + r * (A @ x_star[..., None])[..., 0].abs().amax(-1),
+        gap=qp_cost(P, q, x) - c_star,
+        gap_bound=torch.clamp(GAP[family][1] * c_star.abs(),
+                              min=GAP[family][0]))
+
+
+def certified(cert: dict, lanes) -> torch.Tensor:
+    """Whether each of ``lanes`` (a bool mask) meets both bounds; True
+    elsewhere."""
+    ok = ((cert["violation"] <= cert["feas_bound"])
+          & (cert["gap"] <= cert["gap_bound"]))
+    return ok | ~lanes
+
+
+def qp_families(gm, scs, cfg) -> dict:
+    """The QPs of the main path, rebuilt through the port's own stage
+    functions and solved as the pipeline solves them (K3 for TENSION2 and
+    post, K2 for the path QP's two passes), and the TENSION QP (K3 at
+    (9, 9)) on the same prep stage: family -> (its dense form, the
+    kernels' solution (B, nv), the solver's converged flags); the path
+    QP's valid knots (B,); and the TENSION2 QPs from the dense builder."""
+    st = cfg.qp_settings()
+    prep = pipeline.stage_prep(scs, cfg)
+    smooth = pipeline.stage_smooth(gm, prep, cfg, st)
+    xs2, ys2, cor = pipeline.stage_corridor(gm, scs, smooth, cfg)
+    l_post, _ = pipeline.stage_post_smooth(cor, cfg, st)
+    geo = pipeline.stage_geometry(gm, scs, xs2, ys2, cor, l_post, cfg)
+    sol1, sol2 = pipeline.stage_path_qp(scs, geo, cfg, st)
+    _, xg, yg, sg, ang, kg, n_seg = prep
+    tcfg = dataclasses.replace(cfg, **VARIANTS["tension"])
+    blocks = {
+        "tension2": build_tension2_structured(xg, yg, ang, kg, sg, n_seg,
+                                              cfg),
+        "post": build_post_structured(cor.layers_s, cor.lower, cor.upper,
+                                      cor.vehicle_l, cor.n_layers, cfg),
+        "tension": build_tension_qp_blocks(gm, xg, yg, ang, n_seg, tcfg)}
+    out = {}
+    for name, qp in blocks.items():
+        sol = structured.solve_structured_batched(qp, settings=st)
+        out[name] = (structured.to_dense(qp), sol.v.flatten(1),
+                     sol.converged)
+    out["path"] = (assembly.to_dense(pipeline.build_path_qp(
+        scs, geo, cfg, sol1=sol1)), sol2.v.flatten(1), sol2.converged)
+    t2_dense = build_tension2_qp(xg, yg, ang, kg, sg, n_seg, cfg)
+    return {k: out[k] for k in FEASIBILITY}, geo[5], t2_dense
+
+
+def optimum(dense):
+    """x* of each QP of the dense float64 batch: the adaptive-rho solve at
+    ORACLE_SETTINGS, and the lanes it leaves unconverged solved again at
+    ORACLE_FIXED. Returns (its QPSolution, the lanes solved again)."""
+    opt = admm.solve_qp_batched(*dense, settings=ORACLE_SETTINGS)
+    redo = (~opt.converged).nonzero()[:, 0]
+    if len(redo):
+        fix = admm.solve_qp_batched(*(a[redo] for a in dense),
+                                    settings=ORACLE_FIXED)
+        opt.x[redo] = fix.x
+        opt.converged[redo] = fix.converged
+        opt.iters[redo] += fix.iters
+    return opt, redo.tolist()
+
+
+def numpy_oracle(job):
+    """The NumPy oracle on one lane (dense numpy arrays): first as the card
+    solved that lane (adaptive rho, unless the card had to fix it), then
+    with rho fixed if the adaptive attempt does not converge. Returns
+    (OracleResult, seconds)."""
+    dense, fixed = job
+    t0 = time.perf_counter()
+    for st in ([] if fixed else [dataclasses.replace(
+            ORACLE_SETTINGS, max_iter=ORACLE_NUMPY_MAX_ITER)]) + [
+            ORACLE_FIXED]:
+        res = oracle.solve(*dense, eps_abs=st.eps_abs, eps_rel=st.eps_rel,
+                           max_iter=st.max_iter, sigma=st.sigma,
+                           alpha=st.alpha, rho_bar=st.rho_bar,
+                           scaling_iters=st.scaling_iters,
+                           adaptive_rho=st.adaptive_rho,
+                           check_every=st.check_every)
+        if res.status == "solved":
+            break
+    return res, time.perf_counter() - t0
+
+
+def drive_oracle(gm, scs, cfg, device="cuda") -> dict:
+    """Each QP family of the main path (and TENSION's) on the batch, in
+    dense form on the device: its float64 optimum x* (optimum), held on
+    ORACLE_PER_CLASS lanes of each lane class to the NumPy oracle (both
+    solved, costs within ORACLE_COST_RTOL); the kernels' solutions held to
+    x* on every lane their solver reports converged (certify); the float32
+    dense solver on the dense builder's TENSION2 QPs (dense32_check); and
+    the pass-2
+    solution with one lane's l moved FAULT_DL at one knot, which must
+    fail."""
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    B = len(scs.n_raw)
+    per = B // len(scenarios.LANES)
+    np_lanes = [c * per + i for c in range(len(scenarios.LANES))
+                for i in range(ORACLE_PER_CLASS)]
+    fams, n_valid, t2_dense = qp_families(gm, scs, cfg)
+    reports, jobs, failed = {}, [], []
+    for name, (dense32, x, conv) in fams.items():
+        dense = tuple(a.double() for a in dense32)
+        sync(device)
+        t0 = time.perf_counter()
+        opt, refixed = optimum(dense)
+        opt.iters.sum().item()
+        secs = time.perf_counter() - t0
+        cert = certify(name, dense, x, opt.x)
+        ok = certified(cert, conv)
+        conv_f = conv.double()
+        reports[name] = dict(
+            phase="oracle", family=name, lanes=B, nv=dense[0].shape[-1],
+            nc=dense[2].shape[-2], lanes_checked=int(conv.sum()),
+            f64_converged=int(opt.converged.sum()), f64_seconds=secs,
+            f64_iters_max=int(opt.iters.max()),
+            f64_iters_mean=float(opt.iters.double().mean()),
+            f64_lanes_rho_fixed=refixed,
+            worst_violation=float((cert["violation"] * conv_f).max()),
+            feas_bound=list(FEASIBILITY[name]), gap_bound=list(GAP[name]),
+            worst_violation_over_bound=float(
+                (cert["violation"] / cert["feas_bound"] * conv_f).max()),
+            worst_gap=float((cert["gap"] * conv_f).max()),
+            worst_gap_over_bound=float(
+                (cert["gap"] / cert["gap_bound"] * conv_f).max()),
+            lanes_missed=(~ok).nonzero()[:, 0].tolist())
+        if not bool(opt.converged.all()) or not bool(ok.all()):
+            failed.append(name)
+        c_star = qp_cost(*dense[:2], opt.x)
+        jobs += [(name, b, float(c_star[b]), bool(opt.converged[b]),
+                  (tuple(a[b].cpu().numpy() for a in dense), b in refixed))
+                 for b in np_lanes]
+        if name == "tension2":
+            reports[name]["float32"] = dense32_check(t2_dense, conv, device)
+            if not reports[name]["float32"]["held"]:
+                failed.append("tension2 float32")
+        if name == "path":
+            reports[name]["fault"] = path_fault(dense, x, conv, opt.x,
+                                                 n_valid)
+            if not reports[name]["fault"]["caught"]:
+                failed.append("path fault not caught")
+        del dense, opt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(ORACLE_THREADS) as ex:
+        results = list(ex.map(numpy_oracle, [job[-1] for job in jobs]))
+    np_secs = time.perf_counter() - t0
+    for name in fams:
+        rows = [(job, res, s) for job, (res, s) in zip(jobs, results)
+                if job[0] == name]
+        rel = [abs(float(qp_cost(*map(torch.as_tensor, job[-1][0][:2]),
+                                 torch.as_tensor(res.x))) - job[2])
+               / max(abs(job[2]), 1e-300) for job, res, _ in rows]
+        solved = all(res.status == "solved" and job[3]
+                     for job, res, _ in rows)
+        reports[name]["numpy_oracle"] = dict(
+            lanes=[job[1] for job, _, _ in rows], all_solved=solved,
+            iters=[res.iters for _, res, _ in rows],
+            max_rel_cost_diff=max(rel), seconds=[s for *_, s in rows])
+        if not solved or max(rel) > ORACLE_COST_RTOL:
+            failed.append(f"{name} numpy oracle")
+    for rep in reports.values():
+        emit(rep)
+    out = dict(phase="oracle", numpy_oracle_seconds=np_secs,
+               numpy_oracle_threads=ORACLE_THREADS, failed=failed)
+    if device == "cuda":
+        out.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   nvidia_smi=card_line())
+    emit(out)
+    if failed:
+        raise AssertionError(f"oracle: {failed}")
+    return reports
+
+
+def dense32_check(dense32, conv, device) -> dict:
+    """The float32 dense solver at default settings on the TENSION2 QPs of
+    the dense builder (``build_tension2_qp``): its converged flags must
+    equal the structured solver's (conv) and its cost gap meet the bound
+    against their own float64 optimum on every lane. (The dense form of
+    the block-banded QPs holds group 0's empty theta row, 0 = 0, which Ruiz
+    scales by 1e8 an iteration: float32 overflows there, in both
+    packages, tests/test_torch_dense_builders.py.)"""
+    dense = tuple(a.double() for a in dense32)
+    opt, _ = optimum(dense)
+    sync(device)
+    t0 = time.perf_counter()
+    sol = admm.solve_qp_batched(*dense32, settings=QPSettings())
+    sol.iters.sum().item()
+    secs = time.perf_counter() - t0
+    cert = certify("tension2", dense, sol.x, opt.x)
+    flags_equal = bool(torch.equal(sol.converged, conv))
+    gap_ok = bool((cert["gap"] <= cert["gap_bound"]).all())
+    return dict(nv=dense[0].shape[-1], nc=dense[2].shape[-2], seconds=secs,
+                iters_max=int(sol.iters.max()),
+                converged=int(sol.converged.sum()), flags_equal=flags_equal,
+                f64_converged=int(opt.converged.sum()),
+                worst_gap_over_bound=float(
+                    (cert["gap"] / cert["gap_bound"]).max()),
+                worst_violation=float(cert["violation"].max()),
+                held=flags_equal and gap_ok and bool(opt.converged.all()))
+
+
+def path_fault(dense, x, conv, x_star, n_valid) -> dict:
+    """The pass-2 solution with the first converged lane's l moved FAULT_DL
+    at its middle valid knot: certify must refuse that lane."""
+    b = int(conv.nonzero()[0, 0])
+    k = int(n_valid[b]) // 2
+    bad = x[b:b + 1].clone()
+    bad[0, 6 * k] += FAULT_DL
+    cert = certify("path", tuple(a[b:b + 1] for a in dense), bad,
+                   x_star[b:b + 1])
+    caught = not bool(certified(cert, torch.ones(1, dtype=torch.bool,
+                                                 device=x.device)).all())
+    return dict(lane=b, knot=k, dl=FAULT_DL, must_fail=True, caught=caught,
+                violation=float(cert["violation"][0]),
+                gap_over_bound=float(cert["gap"][0] / cert["gap_bound"][0]))
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def _free_port() -> int:
@@ -939,16 +1264,44 @@ def drive_cli(extra=(), batch: int = BATCH) -> dict:
                 "path_qp", "finalize")]
     missing = [n for n in need if n not in text]
     converged = any(ln.endswith("converged") for ln in lines)
+    walk = drive_walkthrough()
     emit(dict(phase="cli", argv=argv, seconds=secs, launches=launches,
               missing=missing, converged_trace=converged,
-              output=lines[:60]))
+              output=lines[:60], walkthrough=walk))
     if missing or not converged or "trace truncated" in text:
         raise AssertionError(f"cli: missing {missing}, converged trace "
                              f"{converged}")
     idle = [k for k, c in launches.items() if not c]
     if idle:
         raise AssertionError(f"cli: launched no {idle}")
+    if walk["missing"]:
+        raise AssertionError(f"walkthrough: missing {walk['missing']}")
     return launches
+
+
+WALKTHROUGH = Path(__file__).resolve().parent / "examples" / \
+    "quickstart_torch.py"
+
+
+def drive_walkthrough() -> dict:
+    """examples/quickstart_torch.py on its default device, the card: both
+    of its solves must report every scenario ok."""
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [str(WALKTHROUGH), "--out", f"{tmp}/quickstart.png"]
+        saved = sys.argv
+        sys.argv = argv
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(WALKTHROUGH), run_name="__main__")
+        finally:
+            sys.argv = saved
+        secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    need = ["solved 8 scenarios: ok=8/8", "replanned (warm): ok=8/8"]
+    return dict(seconds=secs, missing=[n for n in need if n not in text],
+                output=text.splitlines())
 
 
 def drive_pscan(gm, scs, cfg, device="cuda") -> dict:
@@ -1054,6 +1407,7 @@ def main() -> int:
     drive_variants(gm, scs, cfg)
     drive_replan(gm, scs, cfg)
     check_golden(cfg)
+    drive_oracle(gm, scs, cfg)
     drive_dist(gm, scs, cfg)
     drive_cli()
     drive_pscan(gm, scs, cfg)

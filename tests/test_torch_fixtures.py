@@ -6,6 +6,9 @@ Each fixture in ``tpu_pathopt_torch/testdata/`` is a JAX package result on
 four Pallas kernels in interpret mode), the function the port computes:
 
 - ``jax_tension_b8.npz``: ``solve_batch`` under TENSION + DP;
+- ``jax_tension_dev_b8.npz``: the same with ``cartesian_deviation_weight
+  = 0.5``, which makes the TENSION optimum unique (regenerated by
+  ``tests/test_torch_tension_dev.py``);
 - ``jax_astar_b8.npz``: ``solve_batch`` under TENSION2 + A*;
 - ``jax_replan_b8.npz``: 3 cycles of the warm replanning stream at the
   default config, 1 m a cycle (``golden.replan_arrays``).
@@ -46,7 +49,7 @@ from tpu_pathopt import replan as jreplan
 from tpu_pathopt.config import PlannerConfig as JaxConfig
 from tpu_pathopt_torch import golden
 
-VARIANTS = ("tension", "astar")
+VARIANTS = ("tension", "tension_dev", "astar")
 
 
 @contextlib.contextmanager
@@ -113,8 +116,8 @@ def jax_rough_arrays() -> dict:
 
 
 def write_fixtures():
-    """(Re)write the TENSION, A*, replan and rough fixtures from the JAX
-    package."""
+    """(Re)write the TENSION (both weights), A*, replan and rough fixtures
+    from the JAX package."""
     for name in VARIANTS:
         np.savez_compressed(golden.FIXTURES[name],
                             **jax_variant_arrays(name)[0])

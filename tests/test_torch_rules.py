@@ -220,3 +220,57 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_dense_solver_and_smoothers_stay_on_their_inputs_device():
+    """The dense solver, its tracer and the single-scenario smoothers
+    compute where their inputs lie and in their dtype: CPU inputs give CPU
+    outputs (nothing goes to the card and back), float64 stays float64,
+    and the inputs are left as they were."""
+    import tpu_pathopt_torch.smoothing.post_smooth as post_mod
+    import tpu_pathopt_torch.smoothing.tension2 as t2_mod
+    from tpu_pathopt_torch import maps
+    from tpu_pathopt_torch.qp import admm
+    from tpu_pathopt_torch.smoothing import tension
+    from tpu_pathopt_torch.torchutil import tree_leaves
+
+    rng = np.random.default_rng(0)
+    F = rng.normal(size=(6, 6))
+    A = rng.normal(size=(4, 6))
+    qp64 = [torch.tensor(a) for a in (F @ F.T + np.eye(6), rng.normal(
+        size=6), A, -np.ones(4), np.ones(4))]
+    M = 12
+    u = np.linspace(0.0, 1.0, M)
+    x, y = 10.0 * u - 5.0, np.sin(u)
+    ang = np.arctan2(np.gradient(y), np.gradient(x))
+    s = np.concatenate([[0.0], np.cumsum(np.hypot(np.diff(x), np.diff(y)))])
+    pts = [torch.tensor(a, dtype=torch.float32) for a in (x, y, ang,
+                                                          np.gradient(ang), s)]
+    layers = [torch.linspace(0.0, 20.0, 8), -torch.ones(8), torch.ones(8),
+              torch.tensor(0.2)]
+    gm = maps.build_map(np.zeros((80, 80), bool), device="cpu")
+    cfg = PlannerConfig()
+    calls = {
+        "solve_qp": (lambda: admm.solve_qp(*qp64), torch.float64),
+        "solve_qp_batched": (lambda: admm.solve_qp_batched(
+            *(a[None] for a in qp64)), torch.float64),
+        "trace_rounds": (lambda: admm.trace_rounds(*qp64, n_rounds=2),
+                         torch.float64),
+        "tension2_smooth": (lambda: t2_mod.tension2_smooth(
+            *pts, torch.tensor(M - 2), cfg), torch.float32),
+        "post_smooth": (lambda: post_mod.post_smooth(
+            *layers, torch.tensor(6), cfg), torch.float32),
+        "tension_smooth": (lambda: tension.tension_smooth(
+            gm, *pts[:3], torch.tensor(M - 2), cfg), torch.float32),
+    }
+    inputs = qp64 + pts + layers
+    before = [a.clone() for a in inputs]
+    for name, (call, dtype) in calls.items():
+        out = call()
+        leaves = tree_leaves(out) if not isinstance(out, dict) else list(
+            out.values())
+        assert leaves and all(t.device.type == "cpu" for t in leaves), name
+        assert all(t.dtype == dtype for t in leaves
+                   if t.is_floating_point()), name
+    for a, b in zip(inputs, before):
+        assert a.device.type == "cpu" and torch.equal(a, b)

@@ -3,9 +3,11 @@ numpy arrays (field name -> array, batch-leading where the JAX value is
 batched).
 
 This lets a test feed each stage of the port exactly the inputs the JAX
-stage saw, so a difference in an early stage (the EDT, a spline) cannot mask
-one in a later stage (a QP). Integer arrays become int64 (the port's index
-type), floats float32, booleans stay booleans. The port never imports the
+stage saw, so a difference in an early stage (the EDT, a spline) cannot
+mask one in a later stage (a QP). Integer arrays become int64 (the port's
+index type), floats float32, booleans stay booleans; a dense QP and a
+``QPSolution`` keep their own float precision (:func:`dense_qp`,
+:func:`qp_solution`), so both packages' dense solvers see the same QP. The port never imports the
 JAX package: the caller turns its dataclasses into dicts, e.g.
 ``{f.name: numpy.asarray(getattr(obj, f.name)) for f in fields(obj)}``.
 """
@@ -19,7 +21,7 @@ import torch
 
 from tpu_pathopt_torch import corridor as corridor_mod
 from tpu_pathopt_torch import maps, pipeline, refpath
-from tpu_pathopt_torch.qp import structured
+from tpu_pathopt_torch.qp import admm, structured
 from tpu_pathopt_torch.solver import assembly
 from tpu_pathopt_torch.torchutil import resolve_device
 
@@ -94,3 +96,25 @@ def path_result(d: dict, device=None) -> pipeline.PathResult:
     b = d.get("bounds")
     return pipeline.PathResult(
         **kw, bounds=None if b is None else corridor_bounds(b, device))
+
+
+def _exact(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor of its own float precision (float64 stays
+    float64), integers as int64, copied."""
+    a = np.array(a)
+    if np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=resolve_device(device))
+
+
+def dense_qp(qp, device=None) -> tuple:
+    """A dense QP ``(P, q, A, l, u)`` (either package's, or numpy) as
+    tensors of its own precision, for ``qp.admm``'s solvers."""
+    return tuple(_exact(a, device) for a in qp)
+
+
+def qp_solution(d: dict, device=None) -> admm.QPSolution:
+    """``admm.QPSolution`` from the fields of a JAX ``QPSolution``, each of
+    its own precision."""
+    return admm.QPSolution(**{f.name: _exact(d[f.name], device)
+                              for f in dataclasses.fields(admm.QPSolution)})

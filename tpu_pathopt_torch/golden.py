@@ -7,6 +7,10 @@ them, on the CPU and the card:
   ``PlannerConfig`` (TENSION2 + DP);
 - ``jax_tension_b8.npz``, ``jax_astar_b8.npz``: ``solve_batch`` under the
   configurations of :data:`CONFIGS` (TENSION + DP, TENSION2 + A*);
+- ``jax_tension_dev_b8.npz``: TENSION + DP with
+  ``cartesian_deviation_weight = 0.5``, which makes the TENSION optimum
+  unique (the default weight 0 leaves a soft mode on straight lanes), held
+  at the default tolerances;
 - ``jax_rough_b8.npz``: ``solve_batch`` with
   ``rough_constraints_far_away`` (the reference's rough rows beyond
   ``precise_planning_length``), from the JAX package's XLA path: its TPU
@@ -38,11 +42,14 @@ TESTDATA = Path(__file__).resolve().parent / "testdata"
 FIXTURE = TESTDATA / "jax_adversarial_b8.npz"
 FIXTURES = {"default": FIXTURE,
             "tension": TESTDATA / "jax_tension_b8.npz",
+            "tension_dev": TESTDATA / "jax_tension_dev_b8.npz",
             "astar": TESTDATA / "jax_astar_b8.npz",
             "rough": TESTDATA / "jax_rough_b8.npz",
             "replan": TESTDATA / "jax_replan_b8.npz"}
 # PlannerConfig keyword arguments of each fixture (both packages).
 CONFIGS = {"default": {}, "tension": {"smoothing_method": "TENSION"},
+           "tension_dev": {"smoothing_method": "TENSION",
+                           "cartesian_deviation_weight": 0.5},
            "astar": {"corridor_method": "ASTAR"},
            "rough": {"rough_constraints_far_away": True}, "replan": {}}
 BATCH = 8

@@ -95,6 +95,21 @@ def normal_blocks(qp: BlockBandedQP, rho, sigma):
     return diag, offp
 
 
+def to_dense(qp: BlockBandedQP):
+    """The batch as dense (P, q, A, l, u): P (B, N nb, N nb), A (B, N r,
+    N nb), variables knot-major and rows group-major, as the JAX package's
+    ``to_dense`` orders them. For the dense solvers and the oracle."""
+    B, N, r, nb = qp.a_cur.shape
+    i = torch.arange(N, device=qp.q.device)
+    A4 = qp.a_cur.new_zeros((B, N, N, r, nb))
+    A4[:, i, i] = qp.a_cur
+    A4[:, i[1:], i[:-1]] = qp.a_prev[:, 1:]
+    A = A4.permute(0, 1, 3, 2, 4).reshape(B, N * r, N * nb)
+    return (btridiag.to_dense(qp.p_diag, qp.p_off[:, 1:]),
+            qp.q.reshape(B, -1), A, qp.lb.reshape(B, -1),
+            qp.ub.reshape(B, -1))
+
+
 @dataclasses.dataclass
 class StructuredSolution:
     v: torch.Tensor          # (B, N, nb)

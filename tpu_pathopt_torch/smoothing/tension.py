@@ -11,8 +11,9 @@ valid d in [-0.5, 0.5] (:159-162).
 The 3rd-difference stencil reaches three points back, so grouping points in
 triples makes the Hessian block-tridiagonal in 9-variable blocks ([x, y, d]
 x 3 points) with 9 rows a group: the structured engine at nb = 9, r = 9,
-whose factor and rounds run through K1 and K3. The dense builder of the JAX
-package is not ported.
+whose factor and rounds run through K1 and K3. The dense form
+(:func:`build_tension_qp`, variables [x(M), y(M), d(M)]) is the yardstick
+of the block-banded one; the pipeline never builds it.
 """
 
 from __future__ import annotations
@@ -145,6 +146,48 @@ def build_tension_qp_blocks(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
         p_diag=p_diag, p_off=p_off, q=torch.zeros((B, G, _NB), dtype=dt,
                                                   device=dev),
         a_cur=a_cur, a_prev=torch.zeros_like(a_cur), lb=lb, ub=ub)
+
+
+def build_tension_qp(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
+                     config: PlannerConfig):
+    """The batch of TENSION QPs in dense form (P, q, A, l, u): inputs
+    (B, M), n_valid (B,); variables [x(M), y(M), d(M)], rows the x and y
+    ties to d along the normal and the d bounds (:102-176)."""
+    B, M = x_in.shape
+    dt, dev = x_in.dtype, x_in.device
+    idx = torch.arange(M, device=dev)
+    nvl = n_valid.long()[:, None]
+    xi, yi, di = 0, M, 2 * M
+
+    P = torch.zeros((B, 3 * M, 3 * M), dtype=dt, device=dev)
+    dds = torch.tensor([1.0, -2.0, 1.0], dtype=dt, device=dev)
+    ddds = torch.tensor([-1.0, 3.0, -3.0, 1.0], dtype=dt, device=dev)
+    blk2 = config.cartesian_curvature_weight * torch.outer(dds, dds)
+    blk3 = config.cartesian_curvature_rate_weight * torch.outer(ddds, ddds)
+    w2 = (idx[:M - 2] <= nvl - 3).to(dt)     # windows of 3 valid points
+    w3 = (idx[:M - 3] <= nvl - 4).to(dt)     # windows of 4 valid points
+    for base in (xi, yi):
+        for w, blk in ((w2, blk2), (w3, blk3)):
+            t = idx[:w.shape[1]] + base
+            for o1 in range(blk.shape[0]):
+                for o2 in range(blk.shape[0]):
+                    P[:, t + o1, t + o2] += w * blk[o1, o2]
+    pad = (idx >= nvl).to(dt)
+    P = P + torch.diag_embed(torch.cat(
+        [pad, pad, config.cartesian_deviation_weight + pad], dim=1))
+
+    theta = angle_in + math.pi / 2
+    A = torch.zeros((B, 3 * M, 3 * M), dtype=dt, device=dev)
+    A[:, idx, xi + idx] = 1.0
+    A[:, idx, di + idx] = -torch.cos(theta)
+    A[:, M + idx, yi + idx] = 1.0
+    A[:, M + idx, di + idx] = -torch.sin(theta)
+    A[:, 2 * M + idx, di + idx] = 1.0
+
+    d_lb, d_ub = _d_bounds(gm, x_in, y_in, n_valid)
+    return (P, torch.zeros((B, 3 * M), dtype=dt, device=dev), A,
+            torch.cat([x_in, y_in, d_lb], dim=1),
+            torch.cat([x_in, y_in, d_ub], dim=1))
 
 
 def _unpack(v, M):

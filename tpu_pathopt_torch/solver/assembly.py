@@ -260,3 +260,32 @@ def normal_blocks(qp: PathQP, rho_knot, rho_end, sigma):
     diag[b, e, 1, 1] += rho_end[:, 1]
     off = torch.einsum("ij,bni,bnik->bnjk", tc, rho_t[:, 1:], tp)
     return diag, off
+
+
+def to_dense(qp: PathQP):
+    """The batch as dense (P, q, A, l, u): P (B, 6N, 6N), A (B, 6N + 2,
+    6N), variables knot-major, rows the N x 6 knot rows in the z layout
+    and then the two end rows, as the JAX package's ``to_dense`` orders
+    them. For the dense solvers and the oracle."""
+    B, N = qp.p_diag.shape[:2]
+    dt, dev = qp.p_diag.dtype, qp.p_diag.device
+    i = torch.arange(N, device=dev)
+    cur = qp.coll_coef.new_zeros((B, N, 6, NB))
+    cur[:, :, :3] = torch.as_tensor(T_CUR, dtype=dt, device=dev)
+    cur[:, :, 3, 2] = 1.0
+    cur[:, :, 4:] = qp.coll_coef
+    A4 = qp.coll_coef.new_zeros((B, N, N, 6, NB))
+    A4[:, i, i] = cur
+    A4[:, i[1:], i[:-1], :3] = qp.t_prev[:, 1:]
+    A_end = qp.coll_coef.new_zeros((B, 2, N * NB))
+    b = torch.arange(B, device=dev)
+    e = end_knot(qp.end_idx, N) * NB
+    A_end[b, 0, e] = 1.0
+    A_end[b, 1, e + 1] = 1.0
+    A = torch.cat([A4.permute(0, 1, 3, 2, 4).reshape(B, N * 6, N * NB),
+                   A_end], dim=1)
+    lb_knot, ub_knot, lb_end, ub_end = bounds(qp)
+    return (torch.diag_embed(qp.p_diag.reshape(B, -1)),
+            qp.p_diag.new_zeros((B, N * NB)), A,
+            torch.cat([lb_knot.reshape(B, -1), lb_end], dim=1),
+            torch.cat([ub_knot.reshape(B, -1), ub_end], dim=1))

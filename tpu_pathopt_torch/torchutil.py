@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -53,3 +54,16 @@ def take(arr, idx):
     n = arr.shape[-1]
     i = torch.remainder(idx.long(), n).clamp(max=n - 1)
     return torch.gather(arr, -1, i.unsqueeze(-1)).squeeze(-1)
+
+
+@contextlib.contextmanager
+def highest_precision():
+    """Full float32 products (no TF32) inside the block, the previous
+    setting restored after it: the counterpart of JAX's
+    ``default_matmul_precision("highest")``."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
