@@ -3,7 +3,7 @@ optimum: the evidence behind ``chip_smoke.FEASIBILITY`` and
 ``chip_smoke.GAP``. Runs on the CPU, a few minutes at the full batch::
 
     JAX_PLATFORMS=cpu python tests/measure_qp_bounds.py [--batch 256] \\
-        [--cap 3000] [--knots 128]
+        [--cap 3000] [--knots 128] [--route long]
 
 Pass 2 of the path QP (at ``--knots``, the default 128) on the adversarial
 batch: the port's stages up to its pass 1, then pass 2 by both packages
@@ -30,10 +30,11 @@ sys.path[:0] = [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                 os.path.dirname(os.path.abspath(__file__))]
 
 import chip_smoke  # noqa: E402
+from test_torch_fixtures import jax_scenarios  # noqa: E402
 from test_torch_oracle_parity import jax_pass2  # noqa: E402
 from test_torch_smoothing_optimality import build_families  # noqa: E402
 from tpu_pathopt.config import PlannerConfig as JaxConfig  # noqa: E402
-from tpu_pathopt_torch import pipeline, scenarios  # noqa: E402
+from tpu_pathopt_torch import maps, pipeline, scenarios  # noqa: E402
 from tpu_pathopt_torch.config import PlannerConfig  # noqa: E402
 from tpu_pathopt_torch.solver import assembly  # noqa: E402
 
@@ -75,24 +76,43 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--cap", type=int, default=3000)
     ap.add_argument("--knots", type=int, default=128)
+    ap.add_argument("--route", choices=("adversarial", "long"),
+                    default="adversarial")
     args = ap.parse_args()
     chip_smoke.ORACLE_SETTINGS = dataclasses.replace(
         chip_smoke.ORACLE_SETTINGS, max_iter=args.cap)
 
-    if args.knots == PlannerConfig().n_knots:
-        for family, (dense, opt, sols) in build_families().items():
-            for solver, (x, _) in sols.items():
-                report(family, solver, [stats(family, dense, x, opt)])
+    if args.route == "long":
+        kw = scenarios.LONG_CONFIG
+        per = 256 // len(scenarios.LANES)
+        rows = [c * per + i for c in range(len(scenarios.LANES))
+                for i in range(chip_smoke.LONG_ORACLE_PER_CLASS)]
+        arrays = {k: v[rows] for k, v in
+                  scenarios.long_route_arrays(256).items()}
+        gm = maps.build_map(scenarios.long_route_mask(),
+                            resolution=scenarios.RESOLUTION,
+                            pad_shape=scenarios.PAD_SHAPE, device="cpu")
+        scs = scenarios.scenario_batch(arrays, "cpu")
+        scs_j = jax_scenarios(arrays)
+        args.batch = len(rows)
+    else:
+        kw = dict(n_knots=args.knots)
+        if args.knots == PlannerConfig().n_knots:
+            for family, (dense, opt, sols) in build_families().items():
+                for solver, (x, _) in sols.items():
+                    report(family, solver, [stats(family, dense, x, opt)])
+        gm, scs, _ = scenarios.build_adversarial(args.batch, device="cpu")
+        scs_j = None
 
-    cfg = PlannerConfig(n_knots=args.knots)
-    gm, scs, _ = scenarios.build_adversarial(args.batch, device="cpu")
+    family = "path_long" if args.route == "long" else "path"
+    cfg = PlannerConfig(**kw)
     st = cfg.qp_settings()
     geo, _ = pipeline.run_to_geometry(gm, scs, cfg, st)
     sol1, sol2 = pipeline.stage_path_qp(scs, geo, cfg, st)
     qp2 = pipeline.build_path_qp(scs, geo, cfg, sol1=sol1)
     xs = {"port": sol2.v.flatten(1),
           "jax": torch.as_tensor(jax_pass2(
-              scs, geo, JaxConfig(n_knots=args.knots))).flatten(1)}
+              scs, geo, JaxConfig(**kw), scs_j)).flatten(1)}
     parts = {k: [] for k in xs}
     refixed = []
     for c0 in range(0, args.batch, CHUNK):
@@ -104,10 +124,10 @@ def main():
         assert bool(opt.converged.all())
         refixed += [c0 + r for r in redo]
         for k, x in xs.items():
-            parts[k].append(stats("path", dense, x[sl], opt))
+            parts[k].append(stats(family, dense, x[sl], opt))
     for k in xs:
-        report("path", k, parts[k])
-    print(json.dumps(dict(family="path", lanes_rho_fixed=refixed,
+        report(family, k, parts[k])
+    print(json.dumps(dict(family=family, lanes_rho_fixed=refixed,
                           cap=args.cap)))
 
 

@@ -11,7 +11,10 @@ four Pallas kernels in interpret mode), the function the port computes:
   ``tests/test_torch_tension_dev.py``);
 - ``jax_astar_b8.npz``: ``solve_batch`` under TENSION2 + A*;
 - ``jax_replan_b8.npz``: 3 cycles of the warm replanning stream at the
-  default config, 1 m a cycle (``golden.replan_arrays``).
+  default config, 1 m a cycle (``golden.replan_arrays``);
+- ``jax_long_b8.npz``: ``solve_batch`` on 8 scenarios of the long route
+  (``scenarios.long_route_arrays(8)`` on ``scenarios.long_route_mask()``)
+  at 512 knots (regenerated by ``tests/test_torch_long_route.py``).
 
 ``jax_rough_b8.npz`` (``solve_batch`` with ``rough_constraints_far_away``)
 is the exception: :func:`jax_rough_arrays` takes the JAX package's XLA
@@ -23,7 +26,7 @@ iterates another operator than the one the XLA path factors and solves
 (``tests/test_torch_knobs.py`` shows the round). The port takes each knot's
 rows, as the XLA path does.
 
-:func:`write_fixtures` writes all four::
+:func:`write_fixtures` writes all of them::
 
     JAX_PLATFORMS=cpu python -c "import sys; sys.path[:0] = ['.', 'tests']; \\
 import test_torch_fixtures as t; t.write_fixtures()"
@@ -115,14 +118,51 @@ def jax_rough_arrays() -> dict:
     return golden.arrays(jax.tree_util.tree_map(np.asarray, res))
 
 
+def jax_scenarios(arrays: dict):
+    """The JAX package's Scenario batch from ``scenarios``-style numpy
+    arrays (``adversarial_arrays``, ``long_route_arrays``)."""
+    import jax.numpy as jnp
+    s, g = arrays["start"], arrays["target"]
+    j = jnp.asarray
+    return jpipe.Scenario(
+        raw_x=j(arrays["raw_x"]), raw_y=j(arrays["raw_y"]),
+        n_raw=j(arrays["n_raw"]), start_x=j(s[:, 0]), start_y=j(s[:, 1]),
+        start_heading=j(s[:, 2]), start_k=jnp.zeros(len(s), jnp.float32),
+        target_x=j(g[:, 0]), target_y=j(g[:, 1]), target_heading=j(g[:, 2]))
+
+
+def jax_long_arrays(scales=(1.0,)) -> list:
+    """The JAX package's solve_batch on the long fixture's 8 scenarios at
+    512 knots, on its TPU path, as flat arrays: one dict for each scale of
+    the raw points."""
+    import jax.numpy as jnp
+    from tpu_pathopt import maps as jmaps
+    from tpu_pathopt_torch import scenarios
+    gm = jmaps.build_map(jnp.asarray(scenarios.long_route_mask()),
+                         resolution=scenarios.RESOLUTION,
+                         pad_shape=scenarios.PAD_SHAPE)
+    arrays = scenarios.long_route_arrays(golden.BATCH)
+    cfg = JaxConfig(**golden.CONFIGS["long"])
+    out = []
+    with jax_tpu_path():
+        for scale in scales:
+            moved = dict(arrays, raw_x=arrays["raw_x"] * np.float32(scale),
+                         raw_y=arrays["raw_y"] * np.float32(scale))
+            res = jpipe.solve_batch_jit(gm, jax_scenarios(moved), cfg)
+            out.append(golden.arrays(jax.tree_util.tree_map(np.asarray,
+                                                            res)))
+    return out
+
+
 def write_fixtures():
-    """(Re)write the TENSION (both weights), A*, replan and rough fixtures
-    from the JAX package."""
+    """(Re)write the TENSION (both weights), A*, replan, rough and long
+    fixtures from the JAX package."""
     for name in VARIANTS:
         np.savez_compressed(golden.FIXTURES[name],
                             **jax_variant_arrays(name)[0])
     np.savez_compressed(golden.FIXTURES["replan"], **jax_replan_arrays())
     np.savez_compressed(golden.FIXTURES["rough"], **jax_rough_arrays())
+    np.savez_compressed(golden.FIXTURES["long"], **jax_long_arrays()[0])
 
 
 def assert_regenerates(got: dict, want: dict):
@@ -188,7 +228,7 @@ def test_rough_fixture_regenerates_on_the_xla_path():
     assert_regenerates(jax_rough_arrays(), want)
 
 
-@pytest.mark.parametrize("name", VARIANTS + ("replan", "rough"))
+@pytest.mark.parametrize("name", VARIANTS + ("replan", "rough", "long"))
 def test_fixtures_are_all_ok(name):
     """Every stored scenario (every cycle's, for the stream) succeeded in
     the JAX package."""

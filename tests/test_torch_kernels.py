@@ -790,36 +790,138 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
 
 
 def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
-    """K2/K3 run one block per scenario with the round in shared memory: at
-    the default config's shapes a block takes at most 110 KB, so two fit
-    on an SM and B = 256 runs in one wave on 132 SMs; a shape beyond one
-    block's 227 KB or 256 threads raises instead of launching."""
+    """K2/K3 run one thread per knot with the round in shared memory. At
+    the default config's shapes the launch plan is one block per scenario
+    (c = 1) with the bytes one block always took, at most 110 KB, so two
+    fit on an SM and B = 256 runs in one wave on 132 SMs. K2 at the long
+    route's 512 knots takes a cluster of 2 blocks. Past the documented
+    limits (K2 2048 knots, K3 2048 at (4, 3) and (3, 3), 1200 at (9, 9):
+    8 blocks of as many knots as one holds) a shape raises instead of
+    launching."""
     from tpu_pathopt_torch.config import PlannerConfig
     cfg = PlannerConfig()
     shapes = [("fused_admm_round", cfg.n_knots, 6, 3),
               ("fused_structured_round", cfg.n_segment_points, 4, 3),
-              ("fused_structured_round", cfg.dp_layers, 3, 3)]
+              ("fused_structured_round", cfg.dp_layers, 3, 3),
+              ("fused_structured_round", 22, 9, 9)]
     for kernel, n, nb, r in shapes:
         smem = fused_rounds.round_smem_bytes(kernel, n, nb, r)
+        assert fused_rounds.round_plan(kernel, n, nb, r) == (1, n, smem)
         assert smem <= 110 * 1024, (kernel, n, smem)
-        assert fused_rounds.check_round_fits(kernel, n, nb, r) == smem
     # K2 at N = 128: 123 floats per knot and a 48-float reduction tail.
     assert fused_rounds.round_smem_bytes("fused_admm_round", 128) == 63168
-    big = fused_rounds.round_smem_bytes("fused_admm_round", 500)
-    assert big > fused_rounds.MAX_SMEM_BYTES == 227 * 1024
-    with pytest.raises(ValueError, match=f"needs {big} bytes"):
-        fused_rounds.check_round_fits("fused_admm_round", 500)
-    with pytest.raises(ValueError, match="256 knots"):
-        fused_rounds.check_round_fits("fused_structured_round", 257, 4, 3)
+    assert fused_rounds.round_plan("fused_admm_round", 512) == (2, 256,
+                                                                126144)
+    assert fused_rounds.MAX_SMEM_BYTES == 227 * 1024
+    limits = {("fused_admm_round", 6, 3): 2048,
+              ("fused_structured_round", 4, 3): 2048,
+              ("fused_structured_round", 3, 3): 2048,
+              ("fused_structured_round", 9, 9): 1200}
+    for (kernel, nb, r), limit in limits.items():
+        assert fused_rounds.round_limit(kernel, nb, r) == limit
+        plan = fused_rounds.round_plan(kernel, limit, nb, r)
+        assert plan.cluster == fused_rounds.MAX_CLUSTER
+        assert plan.smem <= fused_rounds.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match=f"1 to {limit} knots"):
+            fused_rounds.round_plan(kernel, limit + 1, nb, r)
     with pytest.raises(ValueError):
-        fused_rounds.check_round_fits("fused_admm_round", 0)
+        fused_rounds.round_plan("fused_admm_round", 0)
+
+
+def test_round_plan_is_the_smallest_cluster_and_forces_any_size():
+    """The plan takes the smallest cluster that holds the knots, never
+    leaves a CTA empty and gives every CTA but the last k knots; a forced
+    cluster size (the wrappers' private ``_cluster``) takes exactly that
+    size or raises."""
+    for kernel, nb, r in (("fused_admm_round", 6, 3),
+                          ("fused_structured_round", 9, 9)):
+        for n in range(1, fused_rounds.round_limit(kernel, nb, r) + 1):
+            c, k, smem = fused_rounds.round_plan(kernel, n, nb, r)
+            assert k == -(-n // c) and (c - 1) * k < n <= c * k
+            assert smem == fused_rounds.round_smem_bytes(kernel, k, nb, r)
+            if c > 1:
+                with pytest.raises(ValueError):
+                    fused_rounds.round_plan(kernel, n, nb, r, cluster=c - 1)
+    assert fused_rounds.round_plan("fused_admm_round", 256,
+                                   cluster=3) == (3, 86, 42504)
+    assert fused_rounds.round_plan("fused_admm_round", 300) == (2, 150,
+                                                                73992)
+    with pytest.raises(ValueError, match="clusters of 9"):
+        fused_rounds.round_plan("fused_admm_round", 256, cluster=9)
+    with pytest.raises(ValueError):         # 3 CTAs of 1 knot and an empty
+        fused_rounds.round_plan("fused_admm_round", 3, cluster=4)
+
+
+def cpp_constant(text: str, name: str) -> int:
+    """The value of ``constexpr int name = <integer>;`` in a source."""
+    import re
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def cpp_round_plan(n, per_knot, tail, forced, consts):
+    """csrc/btri_sweep.cuh's round_plan, line for line."""
+    threads, cluster, smem_max = consts
+    lo = forced if forced > 0 else 1
+    hi = forced if forced > 0 else cluster
+    c = lo
+    while n >= 1 and c <= hi and c <= cluster:
+        k = (n + c - 1) // c
+        smem = (per_knot * k + tail) * 4
+        if (k + 31) // 32 * 32 <= threads and smem <= smem_max \
+                and (c - 1) * k < n:
+            return c, k, smem
+        c += 1
+    return 0, 0, 0
+
+
+def test_round_plan_matches_the_launchers_plan():
+    """fused_rounds.round_plan and the C launchers' round_plan
+    (csrc/btri_sweep.cuh), which refuse a launch whose plan differs, give
+    the same plan: the constants and each kernel's per-knot and tail
+    floats are read from the sources, the plan's arithmetic is the one
+    written there, and both agree at every N up to past the limits, for
+    every forced cluster size."""
+    src = (kernels.CSRC / "btri_sweep.cuh").read_text()
+    common = (kernels.CSRC / "common.cuh").read_text()
+    k2 = (kernels.CSRC / "fused_admm_round.cu").read_text()
+    k3 = (kernels.CSRC / "fused_structured_round.cu").read_text()
+    consts = (cpp_constant(src, "kMaxRoundThreads"),
+              cpp_constant(src, "kMaxClusterSize"),
+              cpp_constant(common, "kMaxSmemBytes"))
+    assert consts == (fused_rounds.MAX_ROUND_THREADS,
+                      fused_rounds.MAX_CLUSTER, fused_rounds.MAX_SMEM_BYTES)
+    for expr in ("const int k = (n + c - 1) / c;",
+                 "round_threads(k) <= kMaxRoundThreads",
+                 "smem <= kMaxSmemBytes", "(c - 1) * k < n",
+                 "c <= hi && c <= kMaxClusterSize",
+                 "2 * nb * nb + 2 * nb + tri_size(nb) + knot_floats",
+                 "(per_knot * n + tail_floats) * sizeof(float)"):
+        assert expr in src, expr
+    assert "constexpr int kTpFloats = 3 * NB;" in k2
+    assert "constexpr int kResidualFloats = 6 * kMaxRoundWarps;" in k2
+    assert "round_plan(n, NB, kTpFloats, kResidualFloats, forced)" in k2
+    assert "round_plan(a.n, NB, 2 * R * NB, 0, forced)" in k3
+    cases = [("fused_admm_round", 6, 3, 3 * 6, 6 * 8)] + [
+        ("fused_structured_round", nb, r, 2 * r * nb, 0)
+        for nb, r in fused_rounds.ROUND_SHAPES]
+    for kernel, nb, r, own, tail in cases:
+        per_knot = 2 * nb * nb + 2 * nb + nb * (nb + 1) // 2 + own
+        for n in list(range(1, 300)) + list(range(300, 2100, 7)):
+            for forced in range(0, 10):
+                want = cpp_round_plan(n, per_knot, tail, forced, consts)
+                try:
+                    got = tuple(fused_rounds.round_plan(
+                        kernel, n, nb, r, cluster=forced or None))
+                except ValueError:
+                    got = (0, 0, 0)
+                assert got == want, (kernel, n, forced)
 
 
 def test_round_kernel_takes_the_tension_shape():
     """K3 at the TENSION QP's (9, 9) with N = 22 groups: (2 81 + 18 + 45 +
     2 81) 22 4 = 34,056 bytes of shared memory a block."""
-    assert fused_rounds.check_round_fits("fused_structured_round", 22, 9,
-                                         9) == 34056
+    assert fused_rounds.round_plan("fused_structured_round", 22, 9,
+                                   9) == (1, 22, 34056)
 
 
 def test_wrapper_shapes_are_the_kernels_instantiations():

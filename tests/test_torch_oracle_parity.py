@@ -83,8 +83,10 @@ def restrict(dense, b, nv):
     return P[cols, cols], q[cols], A[rows][:, cols], lb[rows], ub[rows]
 
 
-def jax_pass2(scs, geo, jcfg=JCFG):
-    """The JAX package's stage_path_qp on the port's geometry outputs."""
+def jax_pass2(scs, geo, jcfg=JCFG, scs_j=None):
+    """The JAX package's stage_path_qp on the port's geometry outputs
+    (``scs_j``: the JAX package's scenarios, by default the adversarial
+    batch's)."""
     ref, cb, off, herr, ok_init, n_valid = geo
     to_j = lambda cls, obj: cls(**{  # noqa: E731
         f.name: None if getattr(obj, f.name) is None
@@ -94,7 +96,8 @@ def jax_pass2(scs, geo, jcfg=JCFG):
              to_j(jrefpath.CorridorBounds, cb),
              *(np.asarray(a.numpy()) for a in (off, herr, ok_init)),
              np.asarray(n_valid.numpy(), np.int32))
-    _, scs_j, _ = bench.build_adversarial(len(n_valid))
+    if scs_j is None:
+        _, scs_j, _ = bench.build_adversarial(len(n_valid))
     _, sol2 = jax.jit(jpipe.stage_path_qp, static_argnames=(
         "config", "settings"))(scs_j, geo_j, jcfg, jcfg.qp_settings())
     return np.array(sol2.v)

@@ -227,6 +227,10 @@ def first_argmin(total):
     return best_cost, best_prev
 
 
+# The most laterals K4 takes: one thread of its block for each.
+DP_MAX_LATERALS = 1024
+
+
 def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
     """K4's plain version: the DP forward pass as a loop over layers.
 
@@ -266,8 +270,10 @@ def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
     results as :func:`dp_forward_plain`. CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream. The
     launcher splits each lateral's parent scan over the block's threads and
-    refuses a lattice of more than 119 laterals, whose block would not fit
-    in shared memory."""
+    stages each layer's tables in shared memory up to 119 laterals, reading
+    them from device memory above; a lattice of more than
+    ``DP_MAX_LATERALS`` (1024) laterals, one thread each, raises
+    ValueError."""
     dev = kernels.kernel_device(dir_all)
     if dev is None:
         return dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1)
@@ -275,6 +281,9 @@ def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
     if Kp != K:
         raise ValueError(f"dp_forward: lattice ({Kp}, {K}), the kernel takes "
                          "a square lattice")
+    if K > DP_MAX_LATERALS:
+        raise ValueError(f"dp_forward: {K} laterals, the kernel takes at "
+                         f"most {DP_MAX_LATERALS}")
     f32 = torch.float32
     for name, t, shape in (("dir_all", dir_all, (B, lm1, K, K)),
                            ("base_all", base_all, (B, lm1, K, K)),

@@ -1,6 +1,9 @@
 // Device functions shared by the ADMM-round kernels K2 and K3: one thread
-// block (CTA) per scenario, one thread per knot, the whole round resident in
-// shared memory and registers.
+// per knot, the whole round resident in shared memory and registers. A
+// scenario takes one thread block (CTA) or, past what one CTA holds, a
+// thread block cluster of c CTAs (c <= 8): CTA rank j holds knots
+// [j k, j k + k) in its own shared memory and reads its neighbours' edge
+// knots through distributed shared memory (Hopper's DSMEM).
 //
 // The block-tridiagonal solve of every iteration,
 //   y_i  = Cinv_i (rhs_i - W_i y_{i-1})            forward sweep
@@ -13,27 +16,40 @@
 //   vt_i = e_i - H_i vt_{i+1}                      sequential
 // with G_0 = H_{n-1} = 0. Lanes 0..nb-1 of warp 0 walk the knots, lane r
 // owning row r; the previous step's vector reaches every lane by
-// __shfl_sync, and every operand is read from shared memory.
+// __shfl_sync, and every operand is read from shared memory. In a cluster
+// the CTAs walk their runs in turn, rank 0 up on the way forward and down
+// on the way back, with a cluster barrier between turns: each starts from
+// its neighbour's edge knot, the same float the one-CTA walk carries in a
+// register, so the steps, their order and their results do not depend on c.
 //
-// Shared memory of one CTA, in floats, for n knots:
-//   G, H  (n, nb, nb) row-major per knot   read by the sweep lanes
-//   D     (n, nb)                          d, then y, then e, then vt
-//   X     (nb, n)                          a vector handed to knot i-1
-//   ci    (nb (nb + 1) / 2, n)             lower triangle of Cinv_i
-// then the kernel's own per-knot blocks ((k, n) element-major, so thread i
-// reading element k of its knot hits bank (k n + i) mod 32 without
-// conflicts) and a fixed tail. fused_rounds.round_smem_bytes in Python
-// computes the same size; the launchers refuse any other.
+// Shared memory of one CTA, in floats, for k knots per CTA:
+//   G, H  (k, nb, nb) row-major per knot   read by the sweep lanes
+//   D     (k, nb)                          d, then y, then e, then vt
+//   X     (nb, k)                          a vector handed to knot i-1
+//   ci    (nb (nb + 1) / 2, k)             lower triangle of Cinv_i
+// then the kernel's own per-knot blocks ((e, k) element-major, so thread i
+// reading element e of its knot hits bank (e k + i) mod 32 without
+// conflicts) and a fixed tail. fused_rounds.round_smem_bytes and
+// fused_rounds.round_plan in Python compute the same sizes and plan; the
+// launchers refuse any other.
 #pragma once
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace pathopt {
 
+namespace cg = cooperative_groups;
+
 // One thread per knot: at most this many knots per CTA. With 256 threads the
 // compiler may give each thread up to 255 registers (at 512, 128).
 constexpr int kMaxRoundThreads = 256;
 constexpr int kMaxRoundWarps = kMaxRoundThreads / 32;
+// The most CTAs of one cluster that every Hopper part schedules (portable).
+constexpr int kMaxClusterSize = 8;
 
 __host__ __device__ constexpr int tri_size(int nb) { return nb * (nb + 1) / 2; }
 
@@ -48,13 +64,156 @@ inline size_t round_smem_bytes(int n, int nb, int knot_floats,
   return (per_knot * n + tail_floats) * sizeof(float);
 }
 
-// The launch configuration check: 0 if it is valid, else the error to
-// return without launching.
-inline int round_config_error(int n, int batch, size_t need, int smem_bytes) {
-  if (n < 1 || batch < 1 || round_threads(n) > kMaxRoundThreads ||
-      need != static_cast<size_t>(smem_bytes) || smem_bytes > kMaxSmemBytes)
+// A round's launch plan: c CTAs per scenario (a cluster when c > 1), k
+// knots per CTA (rank j holds knots [j k, min(n, j k + k))) and the shared
+// memory of one CTA. cluster == 0: no plan.
+struct RoundPlan {
+  int cluster;
+  int knots;
+  size_t smem;
+};
+
+// The plan for n knots: the smallest c in 1..kMaxClusterSize whose CTAs
+// hold k = ceil(n / c) knots each in at most kMaxRoundThreads threads and
+// kMaxSmemBytes bytes with no CTA left empty, or exactly c = `forced` when
+// forced > 0. Twin of fused_rounds.round_plan.
+inline RoundPlan round_plan(int n, int nb, int knot_floats, int tail_floats,
+                            int forced) {
+  const int lo = forced > 0 ? forced : 1;
+  const int hi = forced > 0 ? forced : kMaxClusterSize;
+  for (int c = lo; n >= 1 && c <= hi && c <= kMaxClusterSize; ++c) {
+    const int k = (n + c - 1) / c;
+    const size_t smem = round_smem_bytes(k, nb, knot_floats, tail_floats);
+    if (round_threads(k) <= kMaxRoundThreads && smem <= kMaxSmemBytes &&
+        (c - 1) * k < n)
+      return RoundPlan{c, k, smem};
+  }
+  return RoundPlan{0, 0, 0};
+}
+
+// The launch configuration check: 0 if the caller's plan (cluster, knots,
+// smem_bytes) is the plan round_plan gives, else the error to return
+// without launching.
+inline int round_config_error(const RoundPlan& plan, int batch, int cluster,
+                              int knots, int smem_bytes) {
+  if (plan.cluster < 1 || batch < 1 || plan.cluster != cluster ||
+      plan.knots != knots || plan.smem != static_cast<size_t>(smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// Launch a round kernel on its plan: the one-CTA instantiation with a plain
+// launch at c = 1, else the cluster instantiation over batch x c CTAs in
+// clusters of c, after checking that a cluster of them fits on the card.
+template <class Args>
+int launch_round(void (*one)(Args), void (*clustered)(Args),
+                 const RoundPlan& plan, int batch, const Args& a,
+                 cudaStream_t stream) {
+  auto kernel = plan.cluster == 1 ? one : clustered;
+  const int smem = static_cast<int>(plan.smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = round_threads(plan.knots);
+  if (plan.cluster == 1) {
+    kernel<<<batch, threads, smem, stream>>>(a);
+    return launch_status();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * plan.cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_status();
+}
+
+// The knots of one scenario that this CTA holds. Without a cluster the
+// CTA is the scenario: rank 0 of 1 with k = count = n, as the compiler
+// sees, so the one-CTA kernel's indexing is the plain kernel's.
+template <bool Cluster>
+struct Span {
+  int k;      // knots per CTA: the stride of the element-major arrays
+  int rank;   // this CTA's rank in its cluster
+  int size;   // CTAs per scenario
+  int base;   // global index of this CTA's first knot
+  int count;  // knots this CTA holds (1..k)
+  int b;      // the scenario
+  // n: the scenario's knots; k_: knots per CTA (the launch plan's)
+  __device__ Span(int n, int k_) {
+    if constexpr (Cluster) {
+      const cg::cluster_group cl = cg::this_cluster();
+      k = k_;
+      rank = static_cast<int>(cl.block_rank());
+      size = static_cast<int>(cl.num_blocks());
+      b = blockIdx.x / size;
+      base = rank * k;
+      count = min(k, n - base);
+    } else {
+      k = n;
+      rank = 0;
+      size = 1;
+      b = blockIdx.x;
+      base = 0;
+      count = n;
+    }
+  }
+};
+
+// A barrier between phases that exchange knots: the CTA's, or the
+// cluster's when the exchange crosses CTAs.
+template <bool Cluster>
+__device__ __forceinline__ void knot_sync() {
+  if constexpr (Cluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// `p`, a pointer into this CTA's shared memory, at the same offset in the
+// shared memory of CTA `rank` of the cluster.
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+  using U = std::remove_const_t<T>;
+  return cg::this_cluster().map_shared_rank(const_cast<U*>(p), rank);
+}
+
+// Column il + 1 of an element-major (rows, k) array (element e at
+// [e k]): the next knot's, from the next CTA when il is this CTA's last.
+// Read it only for a knot whose successor exists (global index < n - 1).
+template <bool Cluster>
+__device__ __forceinline__ const float* next_col(const Span<Cluster>& sp,
+                                                 const float* X, int il) {
+  if constexpr (Cluster) {
+    if (il + 1 == sp.count && sp.rank + 1 < sp.size)
+      return peer(X, sp.rank + 1);
+  }
+  return X + il + 1;
+}
+
+// Row il - 1 of a knot-major (k, nb) array: the previous knot's, from the
+// previous CTA when il is this CTA's first. Read it only for a knot with a
+// predecessor (global index > 0).
+template <bool Cluster>
+__device__ __forceinline__ const float* prev_row(const Span<Cluster>& sp,
+                                                 const float* D, int il,
+                                                 int nb) {
+  if constexpr (Cluster) {
+    if (il == 0 && sp.rank > 0) return peer(D, sp.rank - 1) + (sp.k - 1) * nb;
+  }
+  return D + (il - 1) * nb;
 }
 
 template <int NB>
@@ -74,8 +233,9 @@ struct SweepSmem {
         rest(s + (2 * NB * NB + 2 * NB + tri_size(NB)) * n) {}
 };
 
-// Load knot i's Cinv (its lower triangle) from device memory, where element
-// (r, c) sits at ci_g[(r NB + c) stride], into registers and shared memory,
+// Load local knot i's Cinv (its lower triangle) from device memory, where
+// element (r, c) sits at ci_g[(r NB + c) stride], into registers and shared
+// memory (n: the CTA's stride k),
 // and store G_i = Cinv_i Wp_i and H_i = Cinv_i^T Wp_{i+1}^T (a null Wp gives
 // the zero block). One column of G and one row of Wp_{i+1} at a time, so
 // that only NB of the Wp values are live at once.
@@ -165,21 +325,23 @@ __device__ __forceinline__ float sub_dot(float d, const float g[NB],
   return a - c;
 }
 
-// One sweep over the knots in the direction `step` (+1 forward from knot 0
-// with M = G, -1 backward from knot n-1 with M = H): D_i = D_i - M_i D_prev.
+// One sweep over the n knots of a CTA in the direction `step` (+1 forward
+// from knot 0 with M = G, -1 backward from knot n-1 with M = H):
+// D_i = D_i - M_i D_prev, where lane r's x0 is row r of the D_prev before
+// the first knot (0 at the scenario's ends, where M is 0).
 // Called by lanes 0..NB-1 of one warp and no other thread.
 // Each step's operands are loaded one step ahead, so that only the shuffles
 // and the arithmetic lie on the dependent chain.
 template <int NB>
 __device__ __forceinline__ void sweep(const float* M, float* D, int n,
-                                      int lane, bool forward) {
+                                      int lane, bool forward, float x0) {
   constexpr unsigned mask = (1u << NB) - 1u;
   const int step = forward ? 1 : -1;
   int i = forward ? 0 : n - 1;
   float m[NB], d = D[i * NB + lane];
 #pragma unroll
   for (int j = 0; j < NB; ++j) m[j] = M[(i * NB + lane) * NB + j];
-  float x = 0.f;
+  float x = x0;
   for (int s = 0; s < n; ++s) {
     const int cur = i;
     float mc[NB], xp[NB];
@@ -200,17 +362,37 @@ __device__ __forceinline__ void sweep(const float* M, float* D, int n,
 }
 
 // Both sweeps of one solve, D = d on entry and vt on return; every thread
-// of the CTA calls it. The barriers separate the sweeps from the parallel
-// step between them and from the callers' phases.
-template <int NB>
-__device__ __forceinline__ void solve_in_place(const SweepSmem<NB>& S, int n,
-                                               int i) {
-  if (threadIdx.x < NB) sweep<NB>(S.G, S.D, n, threadIdx.x, true);
+// of every CTA of the scenario calls it (il: the thread's local knot). The
+// barriers separate the CTAs' turns, the sweeps from the parallel step
+// between them and from the callers' phases; without a cluster they are
+// the CTA's three.
+template <int NB, bool Cluster>
+__device__ __forceinline__ void solve_in_place(const SweepSmem<NB>& S,
+                                               const Span<Cluster>& sp,
+                                               int il) {
+  const int lane = threadIdx.x;
+  for (int r = 0; r < sp.size; ++r) {
+    if (sp.rank == r && lane < NB) {
+      float x0 = 0.f;
+      if constexpr (Cluster) {
+        if (r > 0) x0 = peer(S.D, r - 1)[(sp.k - 1) * NB + lane];
+      }
+      sweep<NB>(S.G, S.D, sp.count, lane, true, x0);
+    }
+    knot_sync<Cluster>();
+  }
+  if (il < sp.count) ci_t_mul_in_place<NB>(S, sp.k, il);
   __syncthreads();
-  if (i < n) ci_t_mul_in_place<NB>(S, n, i);
-  __syncthreads();
-  if (threadIdx.x < NB) sweep<NB>(S.H, S.D, n, threadIdx.x, false);
-  __syncthreads();
+  for (int r = sp.size - 1; r >= 0; --r) {
+    if (sp.rank == r && lane < NB) {
+      float x0 = 0.f;
+      if constexpr (Cluster) {
+        if (r + 1 < sp.size) x0 = peer(S.D, r + 1)[lane];
+      }
+      sweep<NB>(S.H, S.D, sp.count, lane, false, x0);
+    }
+    knot_sync<Cluster>();
+  }
 }
 
 // nanmax over the 32 lanes of a warp (every lane gets the result).

@@ -53,9 +53,14 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi).
+// jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi), NaN if any of the
+// three is NaN as in jnp.minimum / jnp.maximum (fminf and fmaxf would drop
+// a NaN bound).
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(x), "f"(lo));
+  asm("min.NaN.f32 %0, %0, %1;" : "+f"(m) : "f"(hi));
+  return m;
 }
 
 // Launch status for the host: the error of the launch itself (a refused

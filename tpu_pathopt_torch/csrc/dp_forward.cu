@@ -40,6 +40,13 @@
 // - fmodf stays: an exact shortcut for |y| < 4 pi (y, or y - 2 pi by
 //   Sterbenz's lemma) saved too little to keep (an A/B on the card,
 //   PERF.md section 6).
+// - Past K = 119 the two buffers no longer fit in shared memory (4 K^2
+//   floats): the launcher then takes the same kernel's other template
+//   branch, which reads each layer's tables straight from device memory
+//   (neighbouring threads on neighbouring laterals, so each kp row is one
+//   coalesced read). The scan, its order and its results are the same, so
+//   it stays bit for bit equal to the plain version; K is at most 1024
+//   (one thread per lateral, one slice each from K = 256).
 // The frontier (cost, dir) lives in shared memory; __syncthreads_or both
 // reduces "any cost < 1e30" and orders the frontier reads before the writes.
 #include "common.cuh"
@@ -59,19 +66,22 @@ __device__ __forceinline__ float wrap(float x) {
   return __fsub_rn(r, kPi);
 }
 
+// Staged: layer tables double-buffered in shared memory (K <= 119), else
+// read from device memory. (No launch bounds: 29-32 registers a thread, so
+// a block of 1024 threads fits the register file.)
+template <bool Staged>
 __global__ void dp_forward_kernel(const float* __restrict__ dir_all,
-                                  const float* __restrict__ base_all,
-                                  const float* __restrict__ h_in,
-                                  const float* __restrict__ cost0,
-                                  const float* __restrict__ dir0,
-                                  float* __restrict__ costs,
-                                  int* __restrict__ parents,
-                                  unsigned char* __restrict__ alives,
-                                  int lm1, int K, int P, float w1) {
+                  const float* __restrict__ base_all,
+                  const float* __restrict__ h_in,
+                  const float* __restrict__ cost0,
+                  const float* __restrict__ dir0, float* __restrict__ costs,
+                  int* __restrict__ parents,
+                  unsigned char* __restrict__ alives, int lm1, int K, int P,
+                  float w1) {
   extern __shared__ float smem[];
   const int KK = K * K;
   float* tables = smem;              // 2 buffers x (dir, base), K x K each
-  float* cost_p = smem + 4 * KK;     // the frontier
+  float* cost_p = smem + (Staged ? 4 * KK : 0);  // the frontier
   float* dir_p = cost_p + K;
   float* part_cost = dir_p + K;      // (P, K) partial minima
   int* part_kp = reinterpret_cast<int*>(part_cost + P * K);
@@ -104,15 +114,22 @@ __global__ void dp_forward_kernel(const float* __restrict__ dir_all,
     cost_p[k] = cost0[static_cast<size_t>(b) * K + k];
     dir_p[k] = dir0[static_cast<size_t>(b) * K + k];
   }
-  stage(0);
+  if constexpr (Staged) stage(0);
   bool alive = true;
 
   for (int l = 0; l < lm1; ++l) {
-    stage(l + 1);
-    cp_async_wait<1>();
+    const float* d;
+    const float* base;
+    if constexpr (Staged) {
+      stage(l + 1);
+      cp_async_wait<1>();
+      d = tables + (l & 1) * 2 * KK;
+      base = d + KK;
+    } else {
+      d = dir_all + (static_cast<size_t>(b) * lm1 + l) * KK;
+      base = base_all + (static_cast<size_t>(b) * lm1 + l) * KK;
+    }
     __syncthreads();  // layer l's tables and the frontier are in place
-    const float* d = tables + (l & 1) * 2 * KK;
-    const float* base = d + KK;
     if (scans) {
       float best = 0.f;
       int best_prev = kp0;
@@ -169,9 +186,10 @@ __global__ void dp_forward_kernel(const float* __restrict__ dir_all,
 // Returns the cudaError_t of the launch (0 on success). The block has K x P
 // threads, P = the number of slices of each lateral's kp scan, chosen so
 // that K x P is at most about 256 (no slice empty), and shared memory for
-// two layers' tables, the frontier and the P partial minima of each
-// lateral. A lattice whose block would exceed the card's shared memory
-// (K > 119) is refused with cudaErrorInvalidValue without running.
+// the frontier, the P partial minima of each lateral and, where they fit
+// in the card's shared memory (K <= 119), two layers' tables; a larger
+// lattice reads its tables from device memory. K above 1024 is refused
+// with cudaErrorInvalidValue without running.
 extern "C" int pathopt_dp_forward(const float* dir_all, const float* base_all,
                                   const float* h_in, const float* cost0,
                                   const float* dir0, float* costs,
@@ -183,20 +201,21 @@ extern "C" int pathopt_dp_forward(const float* dir_all, const float* base_all,
   int slices = K < 256 ? 256 / K : 1;
   if (slices > K) slices = K;
   slices = (K + (K + slices - 1) / slices - 1) / ((K + slices - 1) / slices);
-  const size_t need = (4 * static_cast<size_t>(K) * K + 2 * K +
+  const size_t rest = (2 * static_cast<size_t>(K) +
                        2 * static_cast<size_t>(slices) * K) * sizeof(float);
-  if (need > static_cast<size_t>(pathopt::kMaxSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem_bytes = static_cast<int>(need);
+  const size_t tables = 4 * static_cast<size_t>(K) * K * sizeof(float);
+  const bool staged =
+      tables + rest <= static_cast<size_t>(pathopt::kMaxSmemBytes);
+  const int smem_bytes = static_cast<int>(staged ? tables + rest : rest);
   const int threads = (slices * K + 31) / 32 * 32;
+  auto kernel = staged ? pathopt::dp_forward_kernel<true>
+                       : pathopt::dp_forward_kernel<false>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pathopt::dp_forward_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  pathopt::dp_forward_kernel<<<batch, threads, smem_bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       dir_all, base_all, h_in, cost0, dir0, costs, parents, alives, lm1, K,
       slices, w1);
   return pathopt::launch_status();

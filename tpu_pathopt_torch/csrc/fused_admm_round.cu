@@ -27,10 +27,11 @@
 //
 // What bounds it on the H100: the two sweeps, the only sequential part.
 // Each step is one dependent 6 x 6 matvec on the previous step's result:
-// 2 sweeps x 128 knots x 25 iterations = 6400 dependent steps per launch.
-// At about 40-80 ns a step (a round of shuffles, then a chain of 4 dependent
-// float operations, every operand in shared memory) that is 0.25-0.5 ms. The
-// bytes (the factors and the problem, about 20 MB at B = 256, read once:
+// 2 sweeps x 128 knots x 25 iterations = 6400 dependent steps per launch
+// (25,600 at the long route's 512 knots). At about 40-80 ns a step (a
+// round of shuffles, then a chain of 4 dependent float operations, every
+// operand in shared memory) that is 0.25-0.5 ms at 128 knots. The bytes
+// (the factors and the problem, about 20 MB at B = 256, read once:
 // 0.006 ms at 3.35 TB/s) and the flops are far below it.
 //
 // What the design does about it: one CTA per scenario, one thread per knot
@@ -48,6 +49,13 @@
 // max reduction that propagates NaN as jnp.max does. Only the sweeps are serial, on lanes 0-5
 // of warp 0, one row per lane. Nothing is written to device memory before
 // the last iteration ends.
+// Past 256 knots a scenario takes a cluster of c CTAs (btri_sweep.cuh; c = 2
+// at 512 knots, 126,144 bytes each; at most 8 CTAs, 2048 knots): the
+// barriers around the neighbour exchanges become cluster barriers, the
+// edge knots' neighbours are read from the next or previous CTA's shared
+// memory, the sweeps pass from CTA to CTA, and the residual maxima of the
+// CTAs are combined by rank 0. The arithmetic is the one-CTA kernel's, in
+// the same order, so the results are bit for bit the same at any c.
 #include "btri_sweep.cuh"
 
 namespace pathopt {
@@ -80,6 +88,7 @@ struct PathArgs {
   float* res;         // (4, B)
   int n, batch, iters;
   float alpha, one_minus_alpha, sigma;
+  int knots;          // per CTA: the launch plan's k
 };
 
 // Knot i's collision rows: f0 v0 + f1 v1 + v4 and r0 v0 + r1 v1 + v5.
@@ -107,29 +116,29 @@ __device__ __forceinline__ void at_mul_own(const float w[NB],
 }
 
 // X[:, i] = sum_r tp_i[r][:] w[r]: the A^T share that knot i's transition
-// rows send to knot i-1.
+// rows send to knot i-1 (k: the stride of tp and X, i: the local knot).
 __device__ __forceinline__ void store_trans_contrib(const float* tp, float* X,
-                                                   int n, int i,
+                                                   int k, int i,
                                                    const float w[NB]) {
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
-    float acc = tp[c * n] * w[0];
-    acc = acc + tp[(NB + c) * n] * w[1];
-    acc = acc + tp[(2 * NB + c) * n] * w[2];
-    X[c * n + i] = acc;
+    float acc = tp[c * k] * w[0];
+    acc = acc + tp[(NB + c) * k] * w[1];
+    acc = acc + tp[(2 * NB + c) * k] * w[2];
+    X[c * k + i] = acc;
   }
 }
 
 // Rows of A v at knot i given v_i and v_{i-1} (zero before knot 0).
-__device__ __forceinline__ void a_mul_knot(const float* tp, int n,
+__device__ __forceinline__ void a_mul_knot(const float* tp, int k,
                                            const CollRows& c,
                                            const float v[NB],
                                            const float vp[NB], float z[NB]) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    float ctr = tp[(r * NB) * n] * vp[0];
+    float ctr = tp[(r * NB) * k] * vp[0];
 #pragma unroll
-    for (int j = 1; j < NB; ++j) ctr = ctr + tp[(r * NB + j) * n] * vp[j];
+    for (int j = 1; j < NB; ++j) ctr = ctr + tp[(r * NB + j) * k] * vp[j];
     z[r] = -v[r] + ctr;
   }
   z[3] = v[2];
@@ -137,22 +146,25 @@ __device__ __forceinline__ void a_mul_knot(const float* tp, int n,
   z[5] = c.r0 * v[0] + c.r1 * v[1] + v[5];
 }
 
+template <bool Cluster>
 __global__ void __launch_bounds__(kMaxRoundThreads)
 fused_admm_round_kernel(PathArgs p) {
   extern __shared__ float smem[];
-  const int n = p.n, b = blockIdx.x, i = threadIdx.x;
-  const bool own = i < n;
+  const Span<Cluster> sp(p.n, p.knots);
+  // i: the thread's knot, il: its place in this CTA, k: the CTA's stride
+  const int n = p.n, k = sp.k, b = sp.b, il = threadIdx.x, i = sp.base + il;
+  const bool own = il < sp.count;
   const size_t B = p.batch;
-  const SweepSmem<NB> S(smem, n);
-  float* const tp_s = S.rest + i;  // knot i's (3, 6) block, stride n
-  float* const red = S.rest + kTpFloats * n;
-  auto k6 = [&](int k, int r) { return (static_cast<size_t>(k) * NB + r) * B + b; };
+  const SweepSmem<NB> S(smem, k);
+  float* const tp_s = S.rest + il;  // knot i's (3, 6) block, stride k
+  float* const red = S.rest + kTpFloats * k;
+  auto k6 = [&](int j, int r) { return (static_cast<size_t>(j) * NB + r) * B + b; };
   auto e2 = [&](int r) { return static_cast<size_t>(r) * B + b; };
 
   // The end knot, clamped into [0, n) as the plain version's end_knot does.
   // Only its thread uses the end rows.
   const int e = min(max(p.end_idx[b], 0), n - 1);
-  const bool is_end = i == e;
+  const bool is_end = Cluster ? own && i == e : i == e;
   const float re0 = p.re[e2(0)], re1 = p.re[e2(1)];
   const float lbe0 = p.lbe[e2(0)], lbe1 = p.lbe[e2(1)];
   const float ube0 = p.ube[e2(0)], ube1 = p.ube[e2(1)];
@@ -168,57 +180,59 @@ fused_admm_round_kernel(PathArgs p) {
   // ---- load the scenario once: the blocks, then knot i's vectors ----
   if (own) {
     const size_t m0 = static_cast<size_t>(i) * NB * NB * B + b;
-    load_knot_factors<NB>(S, n, i, p.Ci + m0, i > 0 ? p.Wp + m0 : nullptr,
+    load_knot_factors<NB>(S, k, il, p.Ci + m0, i > 0 ? p.Wp + m0 : nullptr,
                           i < n - 1 ? p.Wp + m0 + NB * NB * B : nullptr, B);
 #pragma unroll
-    for (int k = 0; k < kTpFloats; ++k)
-      tp_s[k * n] = p.tp[(static_cast<size_t>(i) * kTpFloats + k) * B + b];
+    for (int q = 0; q < kTpFloats; ++q)
+      tp_s[q * k] = p.tp[(static_cast<size_t>(i) * kTpFloats + q) * B + b];
   }
   float v[NB], zk[NB], yk[NB], rk[NB], lbk[NB], ubk[NB];
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
-    const size_t k = own ? k6(i, r) : 0;
-    v[r] = p.v[k];
-    zk[r] = p.zk[k];
-    yk[r] = p.yk[k];
-    rk[r] = p.rk[k];
-    lbk[r] = p.lbk[k];
-    ubk[r] = p.ubk[k];
+    const size_t q = own ? k6(i, r) : 0;
+    v[r] = p.v[q];
+    zk[r] = p.zk[q];
+    yk[r] = p.yk[q];
+    rk[r] = p.rk[q];
+    lbk[r] = p.lbk[q];
+    ubk[r] = p.ubk[q];
   }
-  __syncthreads();
+  knot_sync<Cluster>();
 
   for (int it = 0; it < p.iters; ++it) {
     // ---- rhs = sigma v + A^T (rho z - y), then d = Cinv rhs ----
     float w[NB];
 #pragma unroll
     for (int r = 0; r < NB; ++r) w[r] = rk[r] * zk[r] - yk[r];
-    if (own) store_trans_contrib(tp_s, S.X, n, i, w);
-    __syncthreads();
+    if (own) store_trans_contrib(tp_s, S.X, k, il, w);
+    knot_sync<Cluster>();
     if (own) {
       float rhs[NB];
       at_mul_own(w, cr, is_end, re0 * ze0 - ye0, re1 * ze1 - ye1, rhs);
       if (i < n - 1) {
+        const float* xn = next_col(sp, S.X, il);
 #pragma unroll
-        for (int c = 0; c < NB; ++c) rhs[c] = rhs[c] + S.X[c * n + i + 1];
+        for (int c = 0; c < NB; ++c) rhs[c] = rhs[c] + xn[c * k];
       }
 #pragma unroll
       for (int c = 0; c < NB; ++c) rhs[c] = sigma * v[c] + rhs[c];
-      store_ci_mul<NB>(S, n, i, rhs);
+      store_ci_mul<NB>(S, k, il, rhs);
     }
     __syncthreads();
 
     // ---- the two sweeps: D = vt ----
-    solve_in_place<NB>(S, n, i);
+    solve_in_place<NB>(S, sp, il);
 
     // ---- A vt, relaxed projection and dual update, knot by knot ----
     if (own) {
       float vt[NB], vp[NB], zt[NB];
+      const float* dp = prev_row(sp, S.D, il, NB);
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        vt[c] = S.D[i * NB + c];
-        vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
+        vt[c] = S.D[il * NB + c];
+        vp[c] = i > 0 ? dp[c] : 0.f;
       }
-      a_mul_knot(tp_s, n, cr, vt, vp, zt);
+      a_mul_knot(tp_s, k, cr, vt, vp, zt);
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
         v[c] = alpha * vt[c] + oma * v[c];
@@ -242,24 +256,26 @@ fused_admm_round_kernel(PathArgs p) {
 
   // ---- OSQP unscaled residuals of the final iterate ----
   // Knot i needs v_{i-1} and knot i+1's transition share of A^T y.
-  __syncthreads();
+  knot_sync<Cluster>();
   if (own) {
 #pragma unroll
-    for (int c = 0; c < NB; ++c) S.D[i * NB + c] = v[c];
-    store_trans_contrib(tp_s, S.X, n, i, yk);
+    for (int c = 0; c < NB; ++c) S.D[il * NB + c] = v[c];
+    store_trans_contrib(tp_s, S.X, k, il, yk);
   }
-  __syncthreads();
+  knot_sync<Cluster>();
   // pri, dua, |Av|, |z|, |Pv|, |A^T y|
   float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (own) {
     float vp[NB], av[NB], aty[NB];
+    const float* dp = prev_row(sp, S.D, il, NB);
 #pragma unroll
-    for (int c = 0; c < NB; ++c) vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
-    a_mul_knot(tp_s, n, cr, v, vp, av);
+    for (int c = 0; c < NB; ++c) vp[c] = i > 0 ? dp[c] : 0.f;
+    a_mul_knot(tp_s, k, cr, v, vp, av);
     at_mul_own(yk, cr, is_end, ye0, ye1, aty);
     if (i < n - 1) {
+      const float* xn = next_col(sp, S.X, il);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) aty[c] = aty[c] + S.X[c * n + i + 1];
+      for (int c = 0; c < NB; ++c) aty[c] = aty[c] + xn[c * k];
     }
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
@@ -289,54 +305,75 @@ fused_admm_round_kernel(PathArgs p) {
       p.ye[e2(1)] = ye1;
     }
   }
-  const int warp = i >> 5, lane = i & 31;
+  const int warp = il >> 5, lane = il & 31;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    m[k] = warp_nanmax(m[k]);
-    if (lane == 0) red[k * kMaxRoundWarps + warp] = m[k];
+  for (int q = 0; q < 6; ++q) {
+    m[q] = warp_nanmax(m[q]);
+    if (lane == 0) red[q * kMaxRoundWarps + warp] = m[q];
   }
   __syncthreads();
-  if (i == 0) {
+  if (il == 0) {
     const int warps = blockDim.x >> 5;
 #pragma unroll
-    for (int k = 0; k < 6; ++k)
+    for (int q = 0; q < 6; ++q)
       for (int w = 1; w < warps; ++w)
-        m[k] = nanmax(m[k], red[k * kMaxRoundWarps + w]);
-    p.res[e2(0)] = m[0];
-    p.res[e2(1)] = m[1];
-    p.res[e2(2)] = nanmax(m[2], m[3]);
-    p.res[e2(3)] = nanmax(m[4], m[5]);
+        m[q] = nanmax(m[q], red[q * kMaxRoundWarps + w]);
+    if constexpr (!Cluster) {
+      p.res[e2(0)] = m[0];
+      p.res[e2(1)] = m[1];
+      p.res[e2(2)] = nanmax(m[2], m[3]);
+      p.res[e2(3)] = nanmax(m[4], m[5]);
+    }
+  }
+  if constexpr (Cluster) {
+    // The CTAs' maxima, combined in rank order by rank 0; the last barrier
+    // keeps every CTA's shared memory alive until rank 0 has read it.
+    if (il == 0) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) red[q * kMaxRoundWarps] = m[q];
+    }
+    knot_sync<Cluster>();
+    if (il == 0 && sp.rank == 0) {
+      for (int r = 1; r < sp.size; ++r) {
+        const float* pr = peer(red, r);
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          m[q] = nanmax(m[q], pr[q * kMaxRoundWarps]);
+      }
+      p.res[e2(0)] = m[0];
+      p.res[e2(1)] = m[1];
+      p.res[e2(2)] = nanmax(m[2], m[3]);
+      p.res[e2(3)] = nanmax(m[4], m[5]);
+    }
+    knot_sync<Cluster>();
   }
 }
 
 }  // namespace
 }  // namespace pathopt
 
-// Returns the cudaError_t of the launch (0 on success). smem_bytes must be
-// the CTA's shared memory for n knots (fused_rounds.round_smem_bytes); any
-// other size, n above 256 or a batch of 0 returns cudaErrorInvalidValue
-// without launching.
+// Returns the cudaError_t of the launch (0 on success). (cluster, knots,
+// smem_bytes) must be the launch plan for n knots (round_plan, or with
+// `forced` > 0 the plan at exactly that cluster size; fused_rounds.round_plan
+// in Python computes the same): any other plan, a shape no plan takes or a
+// batch of 0 returns cudaErrorInvalidValue without launching.
 extern "C" int pathopt_fused_admm_round(
     const float* cc, const float* Ci, const float* Wp, const float* tp,
     const float* lbk, const float* ubk, const float* lbe, const float* ube,
     const float* rk, const float* re, const int* end_idx, const float* pd,
     float* v, float* zk, float* ze, float* yk, float* ye, float* res, int n,
-    int batch,
-    int iters, int smem_bytes, float alpha, float one_minus_alpha,
-    float sigma, void* stream) {
+    int batch, int iters, int cluster, int knots, int forced, int smem_bytes,
+    float alpha, float one_minus_alpha, float sigma, void* stream) {
   using namespace pathopt;
-  const size_t need =
-      round_smem_bytes(n, NB, kTpFloats, kResidualFloats);
-  if (const int err = round_config_error(n, batch, need, smem_bytes))
+  const RoundPlan plan =
+      round_plan(n, NB, kTpFloats, kResidualFloats, forced);
+  if (const int err =
+          round_config_error(plan, batch, cluster, knots, smem_bytes))
     return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      fused_admm_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   PathArgs a{cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
              v, zk, ze, yk, ye, res, n, batch, iters, alpha,
-             one_minus_alpha, sigma};
-  fused_admm_round_kernel<<<batch, round_threads(n), smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return launch_status();
+             one_minus_alpha, sigma, knots};
+  return launch_round(fused_admm_round_kernel<false>,
+                      fused_admm_round_kernel<true>, plan, batch, a,
+                      static_cast<cudaStream_t>(stream));
 }

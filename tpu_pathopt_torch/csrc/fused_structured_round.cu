@@ -36,6 +36,13 @@
 // on lanes 0..nb-1 of warp 0 (0..8 at nb 9; the shuffles name those lanes
 // in their mask, so nb may be up to 32). Templated on (nb, r) so every
 // block loop unrolls.
+// Past what one CTA holds (256 knots; 150 at (9, 9), 232,200 bytes) a
+// scenario takes a cluster of c CTAs, as in K2 (btri_sweep.cuh): at most 8,
+// so 2048 knots at (4, 3) and (3, 3) and 1200 at (9, 9). Cluster barriers
+// replace the CTA's around the neighbour exchanges, the edge knots read
+// their neighbours from the next or previous CTA, and the sweeps pass from
+// CTA to CTA, in the one-CTA order: the results are bit for bit the same
+// at any c.
 #include "btri_sweep.cuh"
 
 namespace pathopt {
@@ -55,19 +62,22 @@ struct StructArgs {
   float* y;
   int n, batch, iters;
   float alpha, one_minus_alpha, sigma;
+  int knots;  // per CTA: the launch plan's k
 };
 
-template <int NB, int R>
+template <int NB, int R, bool Cluster>
 __global__ void __launch_bounds__(kMaxRoundThreads)
 fused_structured_round_kernel(StructArgs p) {
   extern __shared__ float smem[];
-  const int n = p.n, b = blockIdx.x, i = threadIdx.x;
-  const bool own = i < n;
+  const Span<Cluster> sp(p.n, p.knots);
+  // i: the thread's knot, il: its place in this CTA, k: the CTA's stride
+  const int n = p.n, k = sp.k, b = sp.b, il = threadIdx.x, i = sp.base + il;
+  const bool own = il < sp.count;
   const size_t B = p.batch;
-  const SweepSmem<NB> S(smem, n);
-  // knot i's a_cur and a_prev blocks, element (r, c) at [(r NB + c) n]
-  const float* const ac_s = S.rest + i;
-  const float* const ap_s = S.rest + R * NB * n + i;
+  const SweepSmem<NB> S(smem, k);
+  // knot i's a_cur and a_prev blocks, element (r, c) at [(r NB + c) k]
+  const float* const ac_s = S.rest + il;
+  const float* const ap_s = S.rest + R * NB * k + il;
   auto kv = [&](int c) { return (static_cast<size_t>(i) * NB + c) * B + b; };
   auto kr = [&](int r) { return (static_cast<size_t>(i) * R + r) * B + b; };
   const float alpha = p.alpha, oma = p.one_minus_alpha, sigma = p.sigma;
@@ -89,17 +99,17 @@ fused_structured_round_kernel(StructArgs p) {
       ub[r] = p.ub[kr(r)];
     }
     const size_t m0 = static_cast<size_t>(i) * NB * NB * B + b;
-    load_knot_factors<NB>(S, n, i, p.Ci + m0, i > 0 ? p.Wp + m0 : nullptr,
+    load_knot_factors<NB>(S, k, il, p.Ci + m0, i > 0 ? p.Wp + m0 : nullptr,
                           i < n - 1 ? p.Wp + m0 + NB * NB * B : nullptr, B);
-    float* const a_s = S.rest + i;
+    float* const a_s = S.rest + il;
 #pragma unroll
-    for (int k = 0; k < R * NB; ++k) {
-      const size_t g = (static_cast<size_t>(i) * R * NB + k) * B + b;
-      a_s[k * n] = p.ac[g];
-      a_s[(R * NB + k) * n] = p.ap[g];
+    for (int e = 0; e < R * NB; ++e) {
+      const size_t g = (static_cast<size_t>(i) * R * NB + e) * B + b;
+      a_s[e * k] = p.ac[g];
+      a_s[(R * NB + e) * k] = p.ap[g];
     }
   }
-  __syncthreads();
+  knot_sync<Cluster>();
 
   for (int it = 0; it < p.iters; ++it) {
     // ---- rhs = sigma v - q + A^T (rho z - y), then d = Cinv rhs ----
@@ -110,46 +120,48 @@ fused_structured_round_kernel(StructArgs p) {
       // a_prev[i]^T w_i goes to knot i-1
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        float apw = ap_s[c * n] * w[0];
+        float apw = ap_s[c * k] * w[0];
 #pragma unroll
-        for (int r = 1; r < R; ++r) apw = apw + ap_s[(r * NB + c) * n] * w[r];
-        S.X[c * n + i] = apw;
+        for (int r = 1; r < R; ++r) apw = apw + ap_s[(r * NB + c) * k] * w[r];
+        S.X[c * k + il] = apw;
       }
     }
-    __syncthreads();
+    knot_sync<Cluster>();
     if (own) {
+      const float* xn = next_col(sp, S.X, il);
       float rhs[NB];
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        float atw = ac_s[c * n] * w[0];
+        float atw = ac_s[c * k] * w[0];
 #pragma unroll
-        for (int r = 1; r < R; ++r) atw = atw + ac_s[(r * NB + c) * n] * w[r];
-        if (i < n - 1) atw = atw + S.X[c * n + i + 1];
+        for (int r = 1; r < R; ++r) atw = atw + ac_s[(r * NB + c) * k] * w[r];
+        if (i < n - 1) atw = atw + xn[c * k];
         rhs[c] = (sigma * v[c] - q[c]) + atw;
       }
-      store_ci_mul<NB>(S, n, i, rhs);
+      store_ci_mul<NB>(S, k, il, rhs);
     }
     __syncthreads();
 
     // ---- the two sweeps: D = vt ----
-    solve_in_place<NB>(S, n, i);
+    solve_in_place<NB>(S, sp, il);
 
     // ---- A vt, relaxed projection and dual update ----
     if (own) {
       float vt[NB], vp[NB];
+      const float* dp = prev_row(sp, S.D, il, NB);
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        vt[c] = S.D[i * NB + c];
-        vp[c] = i > 0 ? S.D[(i - 1) * NB + c] : 0.f;
+        vt[c] = S.D[il * NB + c];
+        vp[c] = i > 0 ? dp[c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float cur = ac_s[(r * NB) * n] * vt[0];
-        float prv = ap_s[(r * NB) * n] * vp[0];
+        float cur = ac_s[(r * NB) * k] * vt[0];
+        float prv = ap_s[(r * NB) * k] * vp[0];
 #pragma unroll
         for (int j = 1; j < NB; ++j) {
-          cur = cur + ac_s[(r * NB + j) * n] * vt[j];
-          prv = prv + ap_s[(r * NB + j) * n] * vp[j];
+          cur = cur + ac_s[(r * NB + j) * k] * vt[j];
+          prv = prv + ap_s[(r * NB + j) * k] * vp[j];
         }
         const float ztmp = alpha * (cur + prv) + oma * z[r] + y[r] / rho[r];
         const float znew = clip(ztmp, lb[r], ub[r]);
@@ -170,44 +182,49 @@ fused_structured_round_kernel(StructArgs p) {
       p.y[kr(r)] = y[r];
     }
   }
+  // No CTA leaves while a neighbour may still read its last vt.
+  if constexpr (Cluster) knot_sync<Cluster>();
 }
 
 template <int NB, int R>
-int launch_structured(const StructArgs& a, int smem_bytes,
-                      cudaStream_t stream) {
-  const size_t need = round_smem_bytes(a.n, NB, 2 * R * NB, 0);
-  if (const int err = round_config_error(a.n, a.batch, need, smem_bytes))
+int launch_structured(const StructArgs& a, int smem_bytes, int cluster,
+                      int forced, cudaStream_t stream) {
+  const RoundPlan plan = round_plan(a.n, NB, 2 * R * NB, 0, forced);
+  if (const int err =
+          round_config_error(plan, a.batch, cluster, a.knots, smem_bytes))
     return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      fused_structured_round_kernel<NB, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  fused_structured_round_kernel<NB, R>
-      <<<a.batch, round_threads(a.n), smem_bytes, stream>>>(a);
-  return launch_status();
+  return launch_round(fused_structured_round_kernel<NB, R, false>,
+                      fused_structured_round_kernel<NB, R, true>, plan,
+                      a.batch, a, stream);
 }
 
 }  // namespace
 }  // namespace pathopt
 
 // Returns the cudaError_t of the launch (0 on success). An (nb, r) other
-// than (4, 3), (3, 3) or (9, 9), a smem_bytes other than the CTA's shared
-// memory for n knots (fused_rounds.round_smem_bytes), n above 256 or a
-// batch of 0 returns cudaErrorInvalidValue without launching.
+// than (4, 3), (3, 3) or (9, 9), a (cluster, knots, smem_bytes) other than
+// the launch plan for n knots (round_plan, or with `forced` > 0 the plan at
+// exactly that cluster size; fused_rounds.round_plan in Python computes the
+// same), a shape no plan takes or a batch of 0 returns
+// cudaErrorInvalidValue without launching.
 extern "C" int pathopt_fused_structured_round(
     const float* Ci, const float* Wp, const float* ac, const float* ap,
     const float* q, const float* lb, const float* ub, const float* rho,
     float* v, float* z, float* y, int n, int nb, int r, int batch, int iters,
-    int smem_bytes, float alpha, float one_minus_alpha, float sigma,
-    void* stream) {
+    int cluster, int knots, int forced, int smem_bytes, float alpha,
+    float one_minus_alpha, float sigma, void* stream) {
   pathopt::StructArgs a{Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
-                        n, batch, iters, alpha, one_minus_alpha, sigma};
+                        n, batch, iters, alpha, one_minus_alpha, sigma,
+                        knots};
   auto s = static_cast<cudaStream_t>(stream);
   if (nb == 4 && r == 3)
-    return pathopt::launch_structured<4, 3>(a, smem_bytes, s);
+    return pathopt::launch_structured<4, 3>(a, smem_bytes, cluster,
+                                            forced, s);
   if (nb == 3 && r == 3)
-    return pathopt::launch_structured<3, 3>(a, smem_bytes, s);
+    return pathopt::launch_structured<3, 3>(a, smem_bytes, cluster,
+                                            forced, s);
   if (nb == 9 && r == 9)
-    return pathopt::launch_structured<9, 9>(a, smem_bytes, s);
+    return pathopt::launch_structured<9, 9>(a, smem_bytes, cluster,
+                                            forced, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

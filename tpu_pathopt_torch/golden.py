@@ -19,7 +19,11 @@ them, on the CPU and the card:
 - ``jax_replan_b8.npz``: :data:`REPLAN_CYCLES` cycles of the warm
   replanning stream at the default config, advancing
   :data:`REPLAN_DS` m a cycle: each cycle's result and the start pose it
-  advanced to (:func:`replan_arrays`).
+  advanced to (:func:`replan_arrays`);
+- ``jax_long_b8.npz``: ``solve_batch`` on 8 scenarios of the long route
+  (``scenarios.build_long_route``, 120 m routes on a map the size of the
+  reference's demo map) at 512 knots (``scenarios.LONG_CONFIG``), from the
+  JAX package's TPU path (:func:`fixture_batch` builds its batch).
 
 The tolerances are end to end. Stage by stage, fed the JAX stage's own
 inputs, the port agrees far more tightly (``tests/test_torch_stages.py``).
@@ -38,6 +42,8 @@ from pathlib import Path
 
 import numpy as np
 
+from tpu_pathopt_torch import scenarios
+
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 FIXTURE = TESTDATA / "jax_adversarial_b8.npz"
 FIXTURES = {"default": FIXTURE,
@@ -45,13 +51,17 @@ FIXTURES = {"default": FIXTURE,
             "tension_dev": TESTDATA / "jax_tension_dev_b8.npz",
             "astar": TESTDATA / "jax_astar_b8.npz",
             "rough": TESTDATA / "jax_rough_b8.npz",
-            "replan": TESTDATA / "jax_replan_b8.npz"}
+            "replan": TESTDATA / "jax_replan_b8.npz",
+            "long": TESTDATA / "jax_long_b8.npz"}
 # PlannerConfig keyword arguments of each fixture (both packages).
 CONFIGS = {"default": {}, "tension": {"smoothing_method": "TENSION"},
            "tension_dev": {"smoothing_method": "TENSION",
                            "cartesian_deviation_weight": 0.5},
            "astar": {"corridor_method": "ASTAR"},
-           "rough": {"rough_constraints_far_away": True}, "replan": {}}
+           "rough": {"rough_constraints_far_away": True}, "replan": {},
+           "long": scenarios.LONG_CONFIG}
+# Fixtures on the long-route batch; the others are on the adversarial one.
+LONG_ROUTE = ("long",)
 BATCH = 8
 REPLAN_CYCLES = 3
 REPLAN_DS = 1.0
@@ -94,6 +104,16 @@ def arrays(res) -> dict:
     for f in BOUND_FIELDS:
         out["bounds." + f] = np.asarray(_np(getattr(res.bounds, f)))
     return out
+
+
+def fixture_batch(name: str, device=None):
+    """(GridMap, Scenario batch) of fixture ``name``'s BATCH scenarios on
+    ``device``: the long route's for :data:`LONG_ROUTE`, else the
+    adversarial batch's."""
+    build = (scenarios.build_long_route if name in LONG_ROUTE
+             else scenarios.build_adversarial)
+    gm, scs, _ = build(BATCH, device=device)
+    return gm, scs
 
 
 def _np(a):

@@ -10,8 +10,10 @@ rebuilds and an unchanged one loads at once.
 Every launcher returns the ``cudaError_t`` of its launch; :func:`check`
 raises on anything but 0. Each wrapper calls :func:`count_launch` where it
 launches its kernel, and nowhere else, which adds one to ``launches[name]``
-and to ``shape_launches`` under the kernel and its block shape, so a run can
-show that the main path went through each kernel at each of its shapes.
+and to ``shape_launches`` under the kernel and its block shape (for K2 and
+K3 also the knots and the launch plan's cluster size, e.g.
+``fused_admm_round[nb=6,N=512,c=2]``), so a run can show that the main path
+went through each kernel at each of its shapes and plans.
 """
 
 from __future__ import annotations
@@ -133,9 +135,9 @@ def lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
         L.pathopt_fused_admm_round.argtypes = (
-            [p] * 18 + [i] * 4 + [f] * 3 + [p])
+            [p] * 18 + [i] * 7 + [f] * 3 + [p])
         L.pathopt_fused_structured_round.argtypes = (
-            [p] * 11 + [i] * 6 + [f] * 3 + [p])
+            [p] * 11 + [i] * 9 + [f] * 3 + [p])
         L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]
         for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                    L.pathopt_fused_structured_round, L.pathopt_dp_forward):

@@ -1,10 +1,16 @@
-"""The adversarial benchmark batch, rebuilt in numpy.
+"""The adversarial benchmark batch and the long-route batch, built in numpy.
 
-The same map and scenarios as the JAX package's ``bench.build_adversarial``:
-one 60 m x 60 m map at 0.2 m with four lanes (easy: a wide straight corridor;
-tight: pinched to 3.0 m by staggered juts; slalom: four posts forcing an
-S-weave; blocked: a dead-end wall), zero-padded to ``PAD_SHAPE``, and a batch
-of ``batch`` scenarios, a quarter per lane, from ``numpy.random`` seed 0.
+- The adversarial batch: the same map and scenarios as the JAX package's
+  ``bench.build_adversarial``: one 60 m x 60 m map at 0.2 m with four lanes
+  (easy: a wide straight corridor; tight: pinched to 3.0 m by staggered
+  juts; slalom: four posts forcing an S-weave; blocked: a dead-end wall),
+  zero-padded to ``PAD_SHAPE``, and a batch of ``batch`` scenarios, a
+  quarter per lane, from ``numpy.random`` seed 0.
+- The long-route batch: the same four lanes stretched along x on a map the
+  size of the reference's demo map (701 x 710 cells at 0.2 m, 140 x 142 m,
+  ``LONG_SHAPE``), with 120 m routes, planned at :data:`LONG_CONFIG`
+  (512 knots). These functions only make numpy data, so the JAX package
+  gets the same arrays through its own ``maps.build_map``.
 """
 
 from __future__ import annotations
@@ -21,20 +27,36 @@ PAD_SHAPE = (704, 712)  # canonical map array shape
 RESOLUTION = 0.2
 SIZE = 300
 LANES = ("easy", "tight", "slalom", "blocked")
+LANE_Y = (16.0, 5.0, -5.0, -17.0)   # lane centre lines, in LANES' order
+# The long route: 701 x 710 cells (rows along x, columns along y), which
+# PAD_SHAPE holds; routes from x = -60 to 60 m; and the PlannerConfig
+# keyword arguments that plan them whole (0.3 m knots: about 400 valid).
+LONG_SHAPE = (701, 710)
+LONG_X = (-60.0, 60.0)
+LONG_CONFIG = dict(n_knots=512, n_segment_points=128, dp_layers=96)
 
 
-def adversarial_mask() -> np.ndarray:
-    """The 300 x 300 obstacle mask (True = occupied)."""
-    res, size = RESOLUTION, SIZE
-    mask = np.zeros((size, size), bool)
-    xx = (0.5 * size - 0.5 - np.arange(size)) * res   # rows
-    yy = (0.5 * size - 0.5 - np.arange(size)) * res   # cols
+def _mask_painter(shape):
+    """(mask, block): an empty obstacle mask of ``shape`` centred on the
+    origin (row 0 at max x, column 0 at max y) and a function that marks
+    the cells with x_lo <= x <= x_hi and y_lo <= y <= y_hi occupied."""
+    res = RESOLUTION
+    mask = np.zeros(shape, bool)
+    xx = (0.5 * shape[0] - 0.5 - np.arange(shape[0])) * res   # rows
+    yy = (0.5 * shape[1] - 0.5 - np.arange(shape[1])) * res   # cols
 
     def block(x_lo, x_hi, y_lo, y_hi):
         mask[np.ix_((xx >= x_lo) & (xx <= x_hi),
                     (yy >= y_lo) & (yy <= y_hi))] = True
 
     mask[:, np.abs(yy) >= 24.0] = True                # outer walls
+    return mask, block
+
+
+def adversarial_mask() -> np.ndarray:
+    """The 300 x 300 obstacle mask (True = occupied)."""
+    mask, block = _mask_painter((SIZE, SIZE))
+
     for y_sep in (10.0, 0.0, -10.0):                  # lane separators
         block(-30.0, 30.0, y_sep - 0.4, y_sep + 0.4)
     # tight lane (y in [0.8, 9.6]): staggered juts -> 3.0 m gaps
@@ -49,6 +71,37 @@ def adversarial_mask() -> np.ndarray:
     block(14.0, 16.0, -5.8, -0.8)
     # blocked lane (y in [-23.6, -10.4]): dead-end wall across the lane
     block(10.0, 11.0, -23.6, -10.4)
+    return mask
+
+
+def long_route_mask() -> np.ndarray:
+    """The long-route obstacle mask, LONG_SHAPE (True = occupied): the
+    adversarial layout stretched along x. Lane separators from x = -66 to
+    66 m; the tight lane's two staggered juts repeated every 30 m, one
+    from x = -40, the other from x = -25 (a jut at x = -55 would stand
+    within a car's length of the routes' start, where the JAX package's
+    own paths hit it on 18 of the 64 tight lanes); 8 slalom posts every
+    12.5 m from x = -43.75 to 43.75 on alternating sides; the blocked
+    lane's wall at x = 40. (With 9 posts from x = -50 the JAX package's own
+    slalom result moves by 100 ADMM iterations and 0.55 m of collision
+    bound under a 1e-7 relative change of its inputs; on this layout it
+    stays within golden.TOLERANCES, tests/test_torch_long_route.py.)"""
+    mask, block = _mask_painter(LONG_SHAPE)
+    for y_sep in (10.0, 0.0, -10.0):
+        block(-66.0, 66.0, y_sep - 0.4, y_sep + 0.4)
+    for k in (-1, 0, 1, 2):                            # tight lane
+        block(-10.0 + 30 * k, -8.0 + 30 * k, 0.8, 2.6)
+        block(-10.0 + 30 * k, -8.0 + 30 * k, 5.6, 9.6)
+    for k in (-1, 0, 1):
+        block(5.0 + 30 * k, 7.0 + 30 * k, 0.8, 4.0)
+        block(5.0 + 30 * k, 7.0 + 30 * k, 7.0, 9.6)
+    for j in range(8):                                 # slalom lane
+        x = -43.75 + 12.5 * j
+        if j % 2:
+            block(x - 1.0, x + 1.0, -5.8, -0.8)
+        else:
+            block(x - 1.0, x + 1.0, -9.6, -4.6)
+    block(40.0, 41.0, -23.6, -10.4)                    # blocked lane
     return mask
 
 
@@ -68,13 +121,15 @@ def _lane_route(y_lane, n_sc, rng, x0=-25.0, x1=25.0):
     return pts, starts, targets
 
 
-def adversarial_arrays(batch: int = 256, seed: int = 0) -> dict:
+def adversarial_arrays(batch: int = 256, seed: int = 0, x0: float = -25.0,
+                       x1: float = 25.0) -> dict:
     """The scenario batch as numpy arrays: raw_x/raw_y (B, R_RAW) float32,
     n_raw (B,) int32, start (B, 3) and target (B, 3) float32 [x, y,
-    heading]; lanes in the order of ``LANES``, ``batch // 4`` each."""
+    heading]; lanes in the order of ``LANES``, ``batch // 4`` each, routes
+    from x0 to x1."""
     n = batch // 4
     rng = np.random.default_rng(seed)
-    lanes = [_lane_route(y, n, rng) for y in (16.0, 5.0, -5.0, -17.0)]
+    lanes = [_lane_route(y, n, rng, x0, x1) for y in LANE_Y]
     pts = sum((lane[0] for lane in lanes), [])
     return dict(
         raw_x=np.stack([p[0] for p in pts]).astype(np.float32),
@@ -82,6 +137,12 @@ def adversarial_arrays(batch: int = 256, seed: int = 0) -> dict:
         n_raw=np.asarray([p[2] for p in pts], np.int32),
         start=np.asarray(sum((lane[1] for lane in lanes), []), np.float32),
         target=np.asarray(sum((lane[2] for lane in lanes), []), np.float32))
+
+
+def long_route_arrays(batch: int = 256, seed: int = 0) -> dict:
+    """The long-route scenario batch as numpy arrays (the layout of
+    :func:`adversarial_arrays`): 120 m routes along each lane."""
+    return adversarial_arrays(batch, seed, *LONG_X)
 
 
 def scenario_batch(arrays: dict, device=None) -> Scenario:
@@ -104,4 +165,13 @@ def build_adversarial(batch: int = 256, seed: int = 0, device=None):
     gm = maps.build_map(adversarial_mask(), resolution=RESOLUTION,
                         pad_shape=PAD_SHAPE, device=device)
     return gm, scenario_batch(adversarial_arrays(batch, seed), device), \
+        batch // 4
+
+
+def build_long_route(batch: int = 256, seed: int = 0, device=None):
+    """(GridMap, Scenario batch, scenarios per lane) of the long route on
+    ``device``; plan it at ``PlannerConfig(**LONG_CONFIG)``."""
+    gm = maps.build_map(long_route_mask(), resolution=RESOLUTION,
+                        pad_shape=PAD_SHAPE, device=device)
+    return gm, scenario_batch(long_route_arrays(batch, seed), device), \
         batch // 4

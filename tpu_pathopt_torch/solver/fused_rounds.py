@@ -19,15 +19,19 @@
 The kernels' arrays are batch-last ("lane-major", e.g. (N, nb, nb, B)). K1
 gives each scenario a group of 16 lanes (nb 9), 8 (nb 6) or 4 (nb 3, 4),
 one per block row, with 2, 4 or 8 neighbouring scenarios in one warp; K2
-and K3 give each scenario a thread block with one thread per knot and hold
-the whole round in its shared memory, which bounds N
-(:func:`round_smem_bytes`). A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches its kernel on the current stream or
-raises, also at a block shape its kernel is not built for. There is no
-fallback between the two.
+and K3 give each scenario one thread per knot and hold the whole round in
+shared memory: one thread block while it holds the knots (256 of them; 150
+at K3's (9, 9)), else a thread block cluster of up to 8 CTAs, each holding
+a run of knots (:func:`round_plan`). So K2 takes up to 2048 knots, K3 2048
+at (4, 3) and (3, 3) and 1200 at (9, 9). A wrapper given CPU tensors runs
+the plain version; given CUDA tensors it launches its kernel on the current
+stream or raises, also at a block shape its kernel is not built for and
+past those limits. There is no fallback between the two.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -48,10 +52,12 @@ def unlane(a):
     return a.movedim(-1, 0)
 
 
-# K2 and K3 run one thread block per scenario, one thread per knot, with the
-# round in shared memory (csrc/btri_sweep.cuh); these are its limits.
+# K2 and K3 run one thread per knot with the round in shared memory, one
+# thread block or a cluster of them per scenario (csrc/btri_sweep.cuh); these
+# are the limits of one block and of a cluster.
 MAX_ROUND_THREADS = 256
 MAX_SMEM_BYTES = 232448     # 227 KB, the most one block can have on the H100
+MAX_CLUSTER = 8             # CTAs of one cluster that every Hopper part runs
 
 
 def round_smem_bytes(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
@@ -70,16 +76,49 @@ def round_smem_bytes(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
     raise KeyError(kernel)
 
 
-def check_round_fits(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
-    """The shared memory of a K2/K3 launch at this shape; ValueError when
-    one block cannot hold it or its n knots need more than 256 threads."""
-    smem = round_smem_bytes(kernel, n, nb, r)
-    if not 1 <= n <= MAX_ROUND_THREADS or smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{kernel}: N={n}, nb={nb}, r={r} needs {smem} bytes of shared "
-            f"memory and {n} threads in one block; the kernel takes at most "
-            f"{MAX_SMEM_BYTES} bytes and {MAX_ROUND_THREADS} knots")
-    return smem
+class RoundPlan(NamedTuple):
+    """A K2/K3 launch: ``cluster`` CTAs per scenario, ``knots`` per CTA
+    (CTA j holds knots [j knots, (j + 1) knots)) and ``smem`` bytes of
+    shared memory in each."""
+    cluster: int
+    knots: int
+    smem: int
+
+
+def round_limit(kernel: str, nb: int = 6, r: int = 3) -> int:
+    """The most knots a K2/K3 launch takes at this block shape: a full
+    cluster of CTAs, each with as many knots as its threads and shared
+    memory hold."""
+    k = MAX_ROUND_THREADS
+    while round_smem_bytes(kernel, k, nb, r) > MAX_SMEM_BYTES:
+        k -= 1
+    return MAX_CLUSTER * k
+
+
+def round_plan(kernel: str, n: int, nb: int = 6, r: int = 3,
+               cluster: int | None = None) -> RoundPlan:
+    """The launch plan of K2/K3 at ``n`` knots: the smallest cluster size c
+    (1 is one plain thread block) whose CTAs hold k = ceil(n / c) knots
+    each in at most MAX_ROUND_THREADS threads and MAX_SMEM_BYTES of shared
+    memory, none of them empty; or exactly c = ``cluster`` (a test of the
+    cluster path at a shape one block holds). ``round_plan`` in
+    ``csrc/btri_sweep.cuh`` computes the same and the launchers refuse any
+    other plan. ValueError where no plan exists: past
+    :func:`round_limit` knots."""
+    sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
+    for c in sizes:
+        k = -(-n // c)
+        smem = round_smem_bytes(kernel, k, nb, r)
+        if (n >= 1 and 1 <= c <= MAX_CLUSTER and k <= MAX_ROUND_THREADS
+                and smem <= MAX_SMEM_BYTES and (c - 1) * k < n):
+            return RoundPlan(c, k, smem)
+    raise ValueError(
+        f"{kernel}: N={n}, nb={nb}, r={r}"
+        + (f" in clusters of {cluster}" if cluster else "")
+        + f" has no launch plan; the kernel takes 1 to "
+        f"{round_limit(kernel, nb, r)} knots at this block shape (at most "
+        f"{MAX_CLUSTER} CTAs of {MAX_ROUND_THREADS} knots and "
+        f"{MAX_SMEM_BYTES} bytes of shared memory each)")
 
 
 # --------------------------------- K1 ---------------------------------------
@@ -299,7 +338,7 @@ def admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
 
 def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
                      pd, v, zk, ze, yk, ye, iters: int, alpha: float,
-                     sigma: float, key: str = "nb=6"):
+                     sigma: float, key: str = "nb=6", _cluster=None):
     """``iters`` ADMM iterations of the path QP in one launch (K2).
 
     cc (N, 2, 2, B): each knot's collision rows, the coefficients of l and
@@ -309,7 +348,8 @@ def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     lbe/ube/re/ze/ye (2, B); end_idx (B,) int32, clamped into [0, N). Returns
     (v, zk, ze, yk, ye, res) with res (4, B) = per-scenario [pri_res,
     dua_res, max(|Av|, |z|), max(|Pv|, |A^T y|)] of the final iterate. On
-    CUDA tensors N is at most 256 (:func:`check_round_fits`)."""
+    CUDA tensors N is at most 2048 (:func:`round_plan`); ``_cluster``
+    forces the cluster size, for tests of the cluster path."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
         return admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re,
@@ -326,7 +366,7 @@ def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     for name, t in args.items():
         kernels.expect(name, t, shapes[name], F32, dev)
     kernels.expect("end_idx", end_idx, (B,), torch.int32, dev)
-    smem = check_round_fits("fused_admm_round", N)
+    plan = round_plan("fused_admm_round", N, cluster=_cluster)
     # The kernel reads the iterate, then writes its outputs over it.
     v, zk, ze, yk, ye = (t.clone() for t in (v, zk, ze, yk, ye))
     res = torch.empty((4, B), dtype=F32, device=dev)
@@ -334,10 +374,11 @@ def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     err = kernels.lib().pathopt_fused_admm_round(
         p(cc), p(Ci), p(Wp), p(tp), p(lbk), p(ubk), p(lbe), p(ube), p(rk),
         p(re), p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res),
-        N, B, int(iters), smem, float(alpha), float(1 - alpha), float(sigma),
-        kernels.stream_ptr(dev))
+        N, B, int(iters), plan.cluster, plan.knots, _cluster or 0, plan.smem,
+        float(alpha), float(1 - alpha), float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
-    kernels.count_launch("fused_admm_round", key)
+    kernels.count_launch("fused_admm_round",
+                         f"{key},N={N},c={plan.cluster}")
     return v, zk, ze, yk, ye, res
 
 
@@ -380,12 +421,14 @@ def structured_round_plain(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y, iters,
 
 
 def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
-                           iters: int, alpha: float, sigma: float):
+                           iters: int, alpha: float, sigma: float,
+                           _cluster=None):
     """``iters`` ADMM iterations of block-banded QPs in one launch (K3).
     Lane-major float32: Ci/Wp (N, nb, nb, B), ac/ap (N, r, nb, B),
     q/v (N, nb, B), lb/ub/rho/z/y (N, r, B). Returns (v, z, y). On CUDA
-    tensors (nb, r) is one of ``ROUND_SHAPES`` and N is at most 256
-    (:func:`check_round_fits`)."""
+    tensors (nb, r) is one of ``ROUND_SHAPES`` and N is at most 2048 (1200
+    at (9, 9); :func:`round_plan`); ``_cluster`` forces the cluster size,
+    for tests of the cluster path."""
     dev = kernels.kernel_device(Ci)
     if dev is None:
         return structured_round_plain(Ci, Wp, ac, ap, q, lb, ub, rho, v, z,
@@ -402,13 +445,15 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
                 z=z, y=y)
     for name, t in args.items():
         kernels.expect(name, t, shapes[name], F32, dev)
-    smem = check_round_fits("fused_structured_round", N, nb, r)
+    plan = round_plan("fused_structured_round", N, nb, r, cluster=_cluster)
     v, z, y = v.clone(), z.clone(), y.clone()
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_structured_round(
         p(Ci), p(Wp), p(ac), p(ap), p(q), p(lb), p(ub), p(rho), p(v), p(z),
-        p(y), N, nb, r, B, int(iters), smem, float(alpha), float(1 - alpha),
+        p(y), N, nb, r, B, int(iters), plan.cluster, plan.knots,
+        _cluster or 0, plan.smem, float(alpha), float(1 - alpha),
         float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_structured_round")
-    kernels.count_launch("fused_structured_round", f"nb={nb},r={r}")
+    kernels.count_launch("fused_structured_round",
+                         f"nb={nb},r={r},N={N},c={plan.cluster}")
     return v, z, y
