@@ -32,8 +32,10 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    ``coll_coef`` of a structure K2 does not take, raise ValueError without
    a launch. The same for the long route's shapes (``capture_long``): K2
    at 512 knots in clusters of 2 (main and rough rows), at a ragged 300
-   and at 1024, K1 at nb 6 N 512, K3 at (4, 3) N 128 and 384 and (3, 3)
-   N 96 and 300, K4 at 95 x 35 x 35 and on the fine 135-lateral lattice;
+   and at 1024, K1 at each of those runs' shapes (nb 6 at N 300, 512 and
+   1024, nb 4 at N 128 and 384, nb 3 at N 96 and 300), K3 at (4, 3) N 128
+   and 384 and (3, 3) N 96 and 300, K4 at 95 x 35 x 35, at 299 x 35 x 35
+   and on the fine 135-lateral lattice;
    K3 at (9, 9) on 200 conditioned groups and K4 on a 300-lateral lattice
    (``wide_inputs``); K2 and K3 with a NaN bound; the cluster path forced
    at 128 and 256 knots bit for bit equal to one CTA
@@ -63,13 +65,21 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    reading solves the
    TENSION fixture with the plain rounds on the card
    (``QPSettings(fused_rounds=False)``), a second witness of its l;
-6a. ``long_route``: the long route (``scenarios.build_long_route``: 120 m
-   routes on a 701 x 710 map at 0.2 m, the size of the reference's demo
-   map) at 512 knots, the same under the rough rows, and the fine DP
-   lattice (135 laterals) on the adversarial batch, counted and timed by
-   stage; each at ok_fraction 1.0 with every path collision free, no lane
-   but the blocked one truncated on the long route, and K2 launched at
-   512 knots in clusters;
+6a. ``long_route``: first the geometry stage on the inputs the card once
+   turned NaN at 384 segment points (``check_card_geometry``: finite and
+   equal to the same stage on the CPU); then the long route
+   (``scenarios.build_long_route``: 120 m routes on a 701 x 710 map at
+   0.2 m, the size of the reference's demo map) solved to the end under
+   each of ``LONG_RUNS``: at 512 knots, the same under the rough rows, at
+   384 segment points and 300 DP layers (``scenarios.STRETCH_CONFIG``, K3
+   at (4, 3) N 384 and (3, 3) N 300 in clusters) with the kernels and
+   with the plain rounds, at 300 knots and at 1024 knots; and the fine DP
+   lattice (135 laterals) on the adversarial batch; each counted and
+   timed by stage, at ok_fraction 1.0 with every path finite on its valid
+   knots and collision free, no lane but the blocked one truncated (at
+   300 knots, whose 90 m horizon is shorter than the routes, every lane
+   truncated at its last knot, as in the JAX package), and its launch
+   keys shown (K2 at 512, 300 and 1024 knots in clusters);
 7. ``oracle``: each QP family of the main path (TENSION2, post, pass 2 of
    the path QP) and the TENSION QP, rebuilt through the port's own stage
    functions on the batch and solved as the pipeline solves them (K3, K2),
@@ -156,11 +166,8 @@ VARIANTS = {"tension": dict(smoothing_method="TENSION"),
 VARIANT_KEYS = {"tension": ["fused_factor[nb=9]",
                             "fused_structured_round[nb=9,r=9,N=22,c=1]"],
                 "rough": ["fused_admm_round[nb=6,rough,N=128,c=1]"]}
-# On the long route (scenarios.build_long_route at scenarios.LONG_CONFIG):
-# the configuration that stretches K3 to (4, 3) N 384 and (3, 3) N 300 (its
-# smoothing stages only: at 384 segment points the geometry stage leaves
-# some lanes non-finite); the fine DP lattice (K4 at 135 laterals).
-LONG_STRETCH = dict(n_segment_points=384, dp_layers=300)
+# The fine DP lattice (K4 at 135 laterals), on the adversarial batch. The
+# long route's configurations are in LONG_RUNS.
 FINE_LATTICE = dict(search_lateral_spacing=0.15, dp_laterals=135)
 DIST_STREAM = (4, 64)        # batches x scenarios of the streamed run
 DIST_REPLAN_CYCLES = 3
@@ -395,42 +402,51 @@ def _knots(name: str, args) -> int:
 
 def capture_long(gm, scs, cfg, gm_adv, scs_adv, device="cuda") -> dict:
     """The inputs of the long route's kernels (recorded as capture_inputs
-    records them): its main path (K1 at nb 6 as "nb=6,N=512", K2 as
-    "long", K3 as "nb=4,r=3,N=128" and "nb=3,r=3,N=96", K4 as "long"); K2
-    under the rough rows ("long_rough"), at a ragged 300 knots ("N=300")
-    and at 1024 ("N=1024"); K3 at (4, 3) N = 384 and (3, 3) N = 300
-    (LONG_STRETCH); and K4 on the fine lattice of the adversarial batch
-    (FINE_LATTICE, "K=135"). The runs after the first end at their last
-    wanted call."""
+    records them): its main path (K1 as "nb=6,N=512", "nb=4,N=128" and
+    "nb=3,N=96", K2 as "long", K3 as "nb=4,r=3,N=128" and
+    "nb=3,r=3,N=96", K4 as "long"); K2 under the rough rows
+    ("long_rough"); K1 and K2 at a ragged 300 knots
+    ("nb=6,N=300", "N=300") and at 1024 ("nb=6,N=1024", "N=1024"); K1, K3
+    and K4 at scenarios.STRETCH_CONFIG (K1 as "nb=4,N=384" and
+    "nb=3,N=300", K3 at (4, 3) N = 384 and (3, 3) N = 300, K4 at its 300
+    layers as "L=300"); and K4 on the fine lattice of the adversarial
+    batch (FINE_LATTICE, "K=135"). The runs after the first end at their
+    last wanted call (drive_long_route solves each to the end)."""
     seen: dict = {}
 
+    def with_n(name, args):
+        return f"{_shape_key(name, args)},N={_knots(name, args)}"
+
     def main_key(name, args):
-        if name == "fused_factor":
-            return f"nb=6,N={_knots(name, args)}" if args[0].shape[1] == 6 \
-                else None
-        if name == "fused_structured_round":
-            return f"{_shape_key(name, args)},N={_knots(name, args)}"
+        if name in ("fused_factor", "fused_structured_round"):
+            return with_n(name, args)
         return "long"
 
-    def k2_only(tag):
-        return lambda name, args: tag if name == "fused_admm_round" else None
+    def knots_key(tag):
+        def key(name, args):
+            if name == "fused_factor":
+                return with_n(name, args)
+            return tag if name == "fused_admm_round" else None
+        return key
 
     def stretch_key(name, args):
-        if name == "fused_structured_round":
-            return f"{_shape_key(name, args)},N={_knots(name, args)}"
+        if name in ("fused_factor", "fused_structured_round"):
+            return with_n(name, args)
+        if name == "dp_forward":
+            return f"L={_knots(name, args) + 1}"
         return None
 
     runs = [
         (gm, scs, cfg, main_key, None),
         (gm, scs, dataclasses.replace(cfg, **VARIANTS["rough"]),
-         k2_only("long_rough"), ("fused_admm_round", "long_rough")),
-        (gm, scs, dataclasses.replace(cfg, n_knots=300), k2_only("N=300"),
+         knots_key("long_rough"), ("fused_admm_round", "long_rough")),
+        (gm, scs, dataclasses.replace(cfg, n_knots=300), knots_key("N=300"),
          ("fused_admm_round", "N=300")),
-        (gm, scs, dataclasses.replace(cfg, n_knots=1024), k2_only("N=1024"),
+        (gm, scs, dataclasses.replace(cfg, n_knots=1024), knots_key("N=1024"),
          ("fused_admm_round", "N=1024")),
-        (gm, scs, dataclasses.replace(cfg, **LONG_STRETCH), stretch_key,
+        (gm, scs, PlannerConfig(**scenarios.STRETCH_CONFIG), stretch_key,
          ("fused_structured_round",
-          f"nb=3,r=3,N={LONG_STRETCH['dp_layers']}")),
+          f"nb=3,r=3,N={scenarios.STRETCH_CONFIG['dp_layers']}")),
         (gm_adv, scs_adv, PlannerConfig(**FINE_LATTICE),
          lambda name, args: "K=135" if name == "dp_forward" else None,
          ("dp_forward", "K=135")),
@@ -941,7 +957,7 @@ def check_outputs(res, cfg):
             raise AssertionError(f"{f}: non-finite values on valid knots")
 
 
-def timed_solve(gm, scs, cfg, device="cuda"):
+def timed_solve(gm, scs, cfg, device="cuda", settings=None):
     """One solve_batch with CUDA events between its stages: (result, wall
     seconds, ms by stage, rounds)."""
     marks, stats = [], {}
@@ -953,8 +969,8 @@ def timed_solve(gm, scs, cfg, device="cuda"):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = pipeline.solve_batch(gm, scs, cfg, device=device, stats=stats,
-                               hook=hook)
+    res = pipeline.solve_batch(gm, scs, cfg, settings, device=device,
+                               stats=stats, hook=hook)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, wall, {a[0]: a[1].elapsed_time(b[1])
@@ -1111,35 +1127,115 @@ def permuted_batch(gm, scs, cfg, res, device="cuda") -> dict:
                               for f in golden.PATH_FIELDS))
 
 
-def drive_long_route(gm, scs, cfg, gm_adv, scs_adv, device="cuda") -> dict:
-    """The long route (its 256 scenarios at cfg, scenarios.LONG_CONFIG),
-    the same under the rough far-away rows, and the fine lattice
-    (FINE_LATTICE) on the adversarial batch, each counted as the main path
-    is (launch counters set to 0 just before the first run, read just
-    after) and timed over REPEATS runs. Each must reach ok_fraction 1.0
-    with every succeeded path collision free; on the long route no lane
-    but the blocked one may stop short of its target (horizon_truncated),
-    and K2 must launch at its 512 knots in clusters; the fine lattice must
-    launch K4 at 135 laterals."""
-    rough = dict(scenarios.LONG_CONFIG, **VARIANTS["rough"])
-    runs = (("long", gm, scs, scenarios.LONG_CONFIG, cfg,
-             [f"fused_admm_round[nb=6,N={cfg.n_knots},c="]),
-            ("long_rough", gm, scs, rough,
-             dataclasses.replace(cfg, **VARIANTS["rough"]),
-             [f"fused_admm_round[nb=6,rough,N={cfg.n_knots},c="]),
-            ("fine_lattice", gm_adv, scs_adv, FINE_LATTICE,
-             PlannerConfig(**FINE_LATTICE),
-             [f"dp_forward[K={FINE_LATTICE['dp_laterals']}]"]))
+# The geometry stage on the card against the same stage on the CPU, fed the
+# same inputs (check_card_geometry): tests/test_torch_stages.py's
+# tolerances for the geometry stage's reference (metres, radians, 1/m) and
+# bounds (one 0.05 m clearance-march step), and n_valid exactly.
+GEOMETRY_TOL = {"x": 2e-2, "y": 2e-2, "heading": 2e-3, "k": 5e-4,
+                "bounds": 0.05 + 2e-3}
+
+
+def geometry_arrays(geo) -> dict:
+    """stage_geometry's output as numpy arrays: the reference, the front
+    and rear bounds, n_valid."""
+    ref, cb = geo[0], geo[1]
+    out = {f: getattr(ref, f) for f in ("x", "y", "heading", "k")}
+    out.update({f: getattr(cb, f) for f in golden.BOUND_FIELDS})
+    out["n_valid"] = geo[-1]
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_card_geometry(device="cuda") -> dict:
+    """pipeline.stage_geometry at scenarios.STRETCH_CONFIG on the five
+    lanes of inputs the card once turned NaN (golden.card_geometry), on
+    ``device`` and on the CPU: every lane's reference finite on its valid
+    knots, n_valid equal, the reference and bounds within GEOMETRY_TOL.
+    Before the geometry stage's refit summed the arc length in float64
+    the card's float32 sum made a zero knot interval on every one of these
+    lanes (n_valid 0, the reference NaN)."""
+    cfg = PlannerConfig(**scenarios.STRETCH_CONFIG)
     out = {}
-    for name, g, sc, kw, c, need in runs:
+    for dev in (device, "cpu"):
+        d = golden.card_geometry(dev)
+        out[dev] = geometry_arrays(pipeline.stage_geometry(
+            d["gm"], d["scs"], d["xs2"], d["ys2"], d["cor"], d["l_post"],
+            cfg))
+    got, want = out[device], out["cpu"]
+    n = np.minimum(got["n_valid"], want["n_valid"])
+    mask = np.arange(cfg.n_knots)[None] < n[:, None]
+    finite = [bool(np.isfinite(got[f][i][mask[i]]).all()
+                   for f in ("x", "y", "heading", "k"))
+              for i in range(len(n))]
+    diffs = {f: float(np.where(mask, np.abs(got[f].astype(np.float64)
+                                            - want[f]), 0.0).max())
+             for f in got if f != "n_valid"}
+    report = dict(phase="long_route", run="card_geometry",
+                  lanes=d["lane"].tolist(), rounds=d["run"].tolist(),
+                  n_valid=got["n_valid"].tolist(),
+                  n_valid_cpu=want["n_valid"].tolist(), finite=finite,
+                  max_abs_diff=diffs)
+    emit(report)
+    bad = [f for f, v in diffs.items()
+           if not v <= GEOMETRY_TOL.get(f, GEOMETRY_TOL["bounds"])]
+    if (not all(finite) or bad or (got["n_valid"] == 0).any()
+            or not np.array_equal(got["n_valid"], want["n_valid"])):
+        raise AssertionError(f"card_geometry: {report}")
+    return report
+
+
+# The long route's runs in the long_route phase: (name, PlannerConfig
+# keyword arguments, plain rounds, timed runs, launch keys that must show,
+# horizon). A K2 key must show a cluster (c > 1). The plain rounds
+# (QPSettings(fused_rounds=False)) take seconds a launch at these sizes, so
+# that run is timed once. Horizon "whole": no lane but the blocked one
+# stops short of its target (horizon_truncated); "cut": 300 knots of 0.3 m
+# hold 90 m of the 120 m routes, so every lane is truncated at its last
+# knot, as the JAX package's are (tests/test_torch_long_horizon.py).
+LONG_RUNS = (
+    ("long", scenarios.LONG_CONFIG, False, REPEATS,
+     ["fused_admm_round[nb=6,N=512,c="], "whole"),
+    ("long_rough", dict(scenarios.LONG_CONFIG, **VARIANTS["rough"]), False,
+     REPEATS, ["fused_admm_round[nb=6,rough,N=512,c="], "whole"),
+    ("stretch", scenarios.STRETCH_CONFIG, False, REPEATS,
+     ["fused_structured_round[nb=4,r=3,N=384,c=2]",
+      "fused_structured_round[nb=3,r=3,N=300,c=2]"], "whole"),
+    ("stretch_plain", scenarios.STRETCH_CONFIG, True, 1, [], "whole"),
+    ("n_knots_300", dict(scenarios.LONG_CONFIG, n_knots=300), False, REPEATS,
+     ["fused_admm_round[nb=6,N=300,c=2]"], "cut"),
+    ("n_knots_1024", dict(scenarios.LONG_CONFIG, n_knots=1024), False,
+     REPEATS, ["fused_admm_round[nb=6,N=1024,c=4]"], "whole"),
+)
+
+
+def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda") -> dict:
+    """The long route's 256 scenarios under each of LONG_RUNS (at 512
+    knots, the same under the rough far-away rows, at 384 segment points
+    with the kernels and with the plain rounds, at 300 and 1024 knots),
+    and the fine lattice (FINE_LATTICE) on the adversarial batch, each
+    solved to the end and counted as the main path is (launch counters set
+    to 0 just before the first run, read just after), and timed over its
+    runs. Each must reach ok_fraction 1.0 with every path finite on its
+    valid knots and every succeeded path collision free; each long-route
+    run must meet its LONG_RUNS horizon and launch its LONG_RUNS keys; the
+    fine lattice must launch K4 at 135 laterals. First the geometry stage
+    on the card's captured inputs (check_card_geometry)."""
+    runs = [(name, gm, scs, kw, PlannerConfig(**kw), plain, reps, need,
+             horizon)
+            for name, kw, plain, reps, need, horizon in LONG_RUNS]
+    runs.append(("fine_lattice", gm_adv, scs_adv, FINE_LATTICE,
+                 PlannerConfig(**FINE_LATTICE), False, REPEATS,
+                 [f"dp_forward[K={FINE_LATTICE['dp_laterals']}]"], None))
+    out = {"card_geometry": check_card_geometry(device)}
+    for name, g, sc, kw, c, plain, reps, need, horizon in runs:
+        settings = c.qp_settings(fused_rounds=False) if plain else None
         kernels.reset_launches()
-        res, wall, stage_ms, stats = timed_solve(g, sc, c, device)
+        res, wall, stage_ms, stats = timed_solve(g, sc, c, device, settings)
         launches = dict(kernels.launches)
         by_shape = dict(kernels.shape_launches)
         check_outputs(res, c)
         walls, stages = [wall], [stage_ms]
-        for _ in range(REPEATS - 1):
-            _, w, st, _ = timed_solve(g, sc, c, device)
+        for _ in range(reps - 1):
+            _, w, st, _ = timed_solve(g, sc, c, device, settings)
             walls.append(w)
             stages.append(st)
         per = len(res.ok) // len(scenarios.LANES)
@@ -1147,7 +1243,8 @@ def drive_long_route(gm, scs, cfg, gm_adv, scs_adv, device="cuda") -> dict:
                  for i, lane in enumerate(scenarios.LANES)}
         unblocked = slice(0, per * scenarios.LANES.index("blocked"))
         report = dict(
-            phase="long_route", run=name, config=kw, batch=len(res.ok),
+            phase="long_route", run=name, config=kw, plain_rounds=plain,
+            batch=len(res.ok),
             n_knots=c.n_knots, seconds_runs=walls,
             solves_per_s=len(res.ok) / statistics.median(walls),
             ok_fraction=float(res.ok.float().mean()),
@@ -1169,9 +1266,13 @@ def drive_long_route(gm, scs, cfg, gm_adv, scs_adv, device="cuda") -> dict:
         col = report["collision"]
         if col["n_ok_collision_free"] != col["n_ok"]:
             raise AssertionError(f"{name}: {col}")
-        if name != "fine_lattice" and report["truncated_unblocked"]:
+        if horizon == "whole" and report["truncated_unblocked"]:
             raise AssertionError(f"{name}: {report['truncated_unblocked']} "
                                  "scenarios off the blocked lane truncated")
+        if horizon == "cut" and not (bool(res.horizon_truncated.all()) and
+                                     bool((res.n_valid == c.n_knots).all())):
+            raise AssertionError(f"{name}: {report['truncated']} scenarios "
+                                 f"truncated, n_valid {report['n_valid']}")
         for prefix in need:
             hits = [k for k in by_shape if k.startswith(prefix)]
             if not hits or (prefix.startswith("fused_admm_round")
@@ -1850,7 +1951,7 @@ def main() -> int:
     drive_variants(gm, scs, cfg)
     drive_replan(gm, scs, cfg)
     check_golden(cfg)
-    long_report = drive_long_route(gm_long, scs_long, cfg_long, gm, scs)
+    long_report = drive_long_route(gm_long, scs_long, gm, scs)
     drive_oracle(gm, scs, cfg)
     drive_long_oracle(gm_long, scs_long, cfg_long)
     drive_dist(gm, scs, cfg)

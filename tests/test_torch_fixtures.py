@@ -14,7 +14,10 @@ four Pallas kernels in interpret mode), the function the port computes:
   default config, 1 m a cycle (``golden.replan_arrays``);
 - ``jax_long_b8.npz``: ``solve_batch`` on 8 scenarios of the long route
   (``scenarios.long_route_arrays(8)`` on ``scenarios.long_route_mask()``)
-  at 512 knots (regenerated by ``tests/test_torch_long_route.py``).
+  at 512 knots (regenerated by ``tests/test_torch_long_route.py``);
+- ``jax_stretch_b8.npz``: the same on 8 lanes of the 256-scenario long
+  route (``golden.FIXTURE_LANES``) at ``scenarios.STRETCH_CONFIG``, 384
+  segment points (regenerated by ``tests/test_torch_long_stretch.py``).
 
 ``jax_rough_b8.npz`` (``solve_batch`` with ``rough_constraints_far_away``)
 is the exception: :func:`jax_rough_arrays` takes the JAX package's XLA
@@ -131,9 +134,10 @@ def jax_scenarios(arrays: dict):
         target_x=j(g[:, 0]), target_y=j(g[:, 1]), target_heading=j(g[:, 2]))
 
 
-def jax_long_arrays(scales=(1.0,)) -> list:
-    """The JAX package's solve_batch on the long fixture's 8 scenarios at
-    512 knots, on its TPU path, as flat arrays: one dict for each scale of
+def jax_long_arrays(scales=(1.0,), name: str = "long") -> list:
+    """The JAX package's solve_batch on a long-route fixture's 8 scenarios
+    (``golden.fixture_arrays``) at its config (the long fixture's: 512
+    knots), on its TPU path, as flat arrays: one dict for each scale of
     the raw points."""
     import jax.numpy as jnp
     from tpu_pathopt import maps as jmaps
@@ -141,8 +145,8 @@ def jax_long_arrays(scales=(1.0,)) -> list:
     gm = jmaps.build_map(jnp.asarray(scenarios.long_route_mask()),
                          resolution=scenarios.RESOLUTION,
                          pad_shape=scenarios.PAD_SHAPE)
-    arrays = scenarios.long_route_arrays(golden.BATCH)
-    cfg = JaxConfig(**golden.CONFIGS["long"])
+    arrays = golden.fixture_arrays(name)
+    cfg = JaxConfig(**golden.CONFIGS[name])
     out = []
     with jax_tpu_path():
         for scale in scales:
@@ -155,14 +159,16 @@ def jax_long_arrays(scales=(1.0,)) -> list:
 
 
 def write_fixtures():
-    """(Re)write the TENSION (both weights), A*, replan, rough and long
-    fixtures from the JAX package."""
+    """(Re)write the TENSION (both weights), A*, replan, rough, long and
+    stretch fixtures from the JAX package."""
     for name in VARIANTS:
         np.savez_compressed(golden.FIXTURES[name],
                             **jax_variant_arrays(name)[0])
     np.savez_compressed(golden.FIXTURES["replan"], **jax_replan_arrays())
     np.savez_compressed(golden.FIXTURES["rough"], **jax_rough_arrays())
-    np.savez_compressed(golden.FIXTURES["long"], **jax_long_arrays()[0])
+    for name in golden.LONG_ROUTE:
+        np.savez_compressed(golden.FIXTURES[name],
+                            **jax_long_arrays(name=name)[0])
 
 
 def assert_regenerates(got: dict, want: dict):
@@ -228,7 +234,8 @@ def test_rough_fixture_regenerates_on_the_xla_path():
     assert_regenerates(jax_rough_arrays(), want)
 
 
-@pytest.mark.parametrize("name", VARIANTS + ("replan", "rough", "long"))
+@pytest.mark.parametrize("name", VARIANTS + ("replan", "rough", "long",
+                                             "stretch"))
 def test_fixtures_are_all_ok(name):
     """Every stored scenario (every cycle's, for the stream) succeeded in
     the JAX package."""

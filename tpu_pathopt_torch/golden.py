@@ -23,7 +23,19 @@ them, on the CPU and the card:
 - ``jax_long_b8.npz``: ``solve_batch`` on 8 scenarios of the long route
   (``scenarios.build_long_route``, 120 m routes on a map the size of the
   reference's demo map) at 512 knots (``scenarios.LONG_CONFIG``), from the
-  JAX package's TPU path (:func:`fixture_batch` builds its batch).
+  JAX package's TPU path (:func:`fixture_batch` builds its batch);
+- ``jax_stretch_b8.npz``: ``solve_batch`` on lanes :data:`FIXTURE_LANES`
+  of the 256-scenario long route at ``scenarios.STRETCH_CONFIG`` (384
+  segment points, 300 DP layers), from the JAX package's TPU path: the
+  easy lanes on which the card's geometry stage once went non-finite and
+  one lane of each other lane class.
+
+``card_geometry_384.npz`` holds no result: it is the inputs of
+``pipeline.stage_geometry`` on five lanes of the long route at
+``scenarios.STRETCH_CONFIG`` as the card computed them (lanes 16 and 48
+with the CUDA kernels, 26, 49 and 63 with the plain rounds), on which the
+card's arc-length sum once made every knot of the lane NaN
+(:func:`card_geometry`).
 
 The tolerances are end to end. Stage by stage, fed the JAX stage's own
 inputs, the port agrees far more tightly (``tests/test_torch_stages.py``).
@@ -38,11 +50,14 @@ residual-check interval per path-QP pass.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from tpu_pathopt_torch import scenarios
+from tpu_pathopt_torch import corridor, maps, scenarios, splines
+from tpu_pathopt_torch.torchutil import resolve_device
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 FIXTURE = TESTDATA / "jax_adversarial_b8.npz"
@@ -52,17 +67,21 @@ FIXTURES = {"default": FIXTURE,
             "astar": TESTDATA / "jax_astar_b8.npz",
             "rough": TESTDATA / "jax_rough_b8.npz",
             "replan": TESTDATA / "jax_replan_b8.npz",
-            "long": TESTDATA / "jax_long_b8.npz"}
+            "long": TESTDATA / "jax_long_b8.npz",
+            "stretch": TESTDATA / "jax_stretch_b8.npz"}
 # PlannerConfig keyword arguments of each fixture (both packages).
 CONFIGS = {"default": {}, "tension": {"smoothing_method": "TENSION"},
            "tension_dev": {"smoothing_method": "TENSION",
                            "cartesian_deviation_weight": 0.5},
            "astar": {"corridor_method": "ASTAR"},
            "rough": {"rough_constraints_far_away": True}, "replan": {},
-           "long": scenarios.LONG_CONFIG}
+           "long": scenarios.LONG_CONFIG, "stretch": scenarios.STRETCH_CONFIG}
 # Fixtures on the long-route batch; the others are on the adversarial one.
-LONG_ROUTE = ("long",)
+LONG_ROUTE = ("long", "stretch")
 BATCH = 8
+# Fixtures whose BATCH scenarios are these lanes of the route's 256-scenario
+# batch (the others take the route's own BATCH-scenario batch).
+FIXTURE_LANES = {"stretch": (16, 26, 48, 49, 63, 80, 144, 208)}
 REPLAN_CYCLES = 3
 REPLAN_DS = 1.0
 POSE_FIELDS = ("start_x", "start_y", "start_heading", "start_k")
@@ -106,14 +125,55 @@ def arrays(res) -> dict:
     return out
 
 
+def fixture_arrays(name: str) -> dict:
+    """The numpy scenario arrays of fixture ``name``'s BATCH scenarios (the
+    layout of ``scenarios.adversarial_arrays``): the long route's for
+    :data:`LONG_ROUTE`, else the adversarial batch's, cut to
+    :data:`FIXTURE_LANES` where the fixture names lanes."""
+    make = (scenarios.long_route_arrays if name in LONG_ROUTE
+            else scenarios.adversarial_arrays)
+    lanes = FIXTURE_LANES.get(name)
+    if lanes is None:
+        return make(BATCH)
+    return {k: v[list(lanes)] for k, v in make(256).items()}
+
+
+CARD_GEOMETRY = TESTDATA / "card_geometry_384.npz"
+
+
+def card_geometry(device=None) -> dict:
+    """The stage_geometry inputs in :data:`CARD_GEOMETRY` on ``device``:
+    ``gm`` and ``scs`` (the long route's map and those lanes of its
+    256-scenario batch), ``xs2``, ``ys2``, ``cor``, ``l_post``, and
+    ``lane`` and ``run`` (numpy: each row's lane and the rounds that made
+    it, "kernels" or "plain")."""
+    z = load(CARD_GEOMETRY)
+    dev = resolve_device(device)
+    t = lambda k: torch.as_tensor(z[k], device=dev)  # noqa: E731
+    spline = lambda p: splines.CubicSpline(**{  # noqa: E731
+        f.name: t(f"{p}.{f.name}") for f in dataclasses.fields(
+            splines.CubicSpline)})
+    gm = maps.build_map(scenarios.long_route_mask(),
+                        resolution=scenarios.RESOLUTION,
+                        pad_shape=scenarios.PAD_SHAPE, device=dev)
+    arrays = {k: v[z["lane"]] for k, v in
+              scenarios.long_route_arrays(256).items()}
+    return dict(gm=gm, scs=scenarios.scenario_batch(arrays, dev),
+                xs2=spline("xs2"), ys2=spline("ys2"),
+                cor=corridor.Corridor(**{f.name: t(f"cor.{f.name}")
+                                         for f in dataclasses.fields(
+                                             corridor.Corridor)}),
+                l_post=t("l_post"), lane=z["lane"], run=z["run"])
+
+
 def fixture_batch(name: str, device=None):
     """(GridMap, Scenario batch) of fixture ``name``'s BATCH scenarios on
-    ``device``: the long route's for :data:`LONG_ROUTE`, else the
-    adversarial batch's."""
-    build = (scenarios.build_long_route if name in LONG_ROUTE
-             else scenarios.build_adversarial)
-    gm, scs, _ = build(BATCH, device=device)
-    return gm, scs
+    ``device`` (:func:`fixture_arrays`) with their map."""
+    mask = (scenarios.long_route_mask() if name in LONG_ROUTE
+            else scenarios.adversarial_mask())
+    gm = maps.build_map(mask, resolution=scenarios.RESOLUTION,
+                        pad_shape=scenarios.PAD_SHAPE, device=device)
+    return gm, scenarios.scenario_batch(fixture_arrays(name), device)
 
 
 def _np(a):

@@ -34,6 +34,10 @@ LANE_Y = (16.0, 5.0, -5.0, -17.0)   # lane centre lines, in LANES' order
 LONG_SHAPE = (701, 710)
 LONG_X = (-60.0, 60.0)
 LONG_CONFIG = dict(n_knots=512, n_segment_points=128, dp_layers=96)
+# The long route with K3 stretched to (4, 3) N 384 (the smoothing QP) and
+# (3, 3) N 300 (post-smoothing): 384 segment points and 300 DP layers,
+# most of them padding on the 120 m routes.
+STRETCH_CONFIG = dict(LONG_CONFIG, n_segment_points=384, dp_layers=300)
 
 
 def _mask_painter(shape):
