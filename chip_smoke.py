@@ -53,9 +53,10 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    must not under A*, K2 must launch under its rough key under rough),
    timed by stage over 3 runs, with the number of succeeded paths that
    are collision free (``collision.py``);
-5. ``replan``: ``replan.replan_stream`` on the batch, 6 cycles warm and 6
-   cold after a 1-cycle warm-up of each; every cycle must succeed and the
-   warm cycles take no more ADMM iterations than the cold; and the
+5. ``replan``: ``replan.replan_stream`` (each cycle the compiled
+   ``replan_step``) on the batch, 6 cycles warm and 6 cold after a
+   1-cycle warm-up of each; every cycle must succeed and the warm cycles
+   take no more ADMM iterations than the cold; and the
    ``solve_batch_profiled`` stage times of one solve;
 6. ``golden``: solves the golden fixtures' 8 scenarios on the card and
    holds each result against the JAX package's stored one
@@ -80,6 +81,18 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    300 knots, whose 90 m horizon is shorter than the routes, every lane
    truncated at its last knot, as in the JAX package), and its launch
    keys shown (K2 at 512, 300 and 1024 knots in clusters);
+6b. ``compiled``: the compiled entry points (``pipeline.solve_batch_jit``,
+   the compiled ``replan.replan_step``; CUDA graphs captured on the first
+   call of a key, replayed after) on the adversarial batch at the default
+   config and under every variant, 3 replanning cycles, and every
+   ``LONG_RUNS`` run but the plain rounds: the first call (capture
+   included) and ``REPEATS`` replays, the first of them counted; every
+   field of every result equal bit for bit to the eager result of the
+   same call from the phases above (``bit_unequal``), ok_fraction 1.0,
+   every path finite and collision free, K1-K3 (and K4 on the DP
+   corridor) launched on replay; it prints the capture seconds, the
+   replay ms (median), solves/s, the graph pool's bytes and the launches
+   by kernel and shape on replay;
 7. ``oracle``: each QP family of the main path (TENSION2, post, pass 2 of
    the path QP) and the TENSION QP, rebuilt through the port's own stage
    functions on the batch and solved as the pipeline solves them (K3, K2),
@@ -93,8 +106,9 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    then the long route's pass 2 (3072 x 3074 dense) on 8 lanes, held the
    same way to its float64 optimum (``drive_long_oracle``);
 8. ``dist``: a one-rank NCCL group on 127.0.0.1: ``dist.solve_sharded``
-   on the batch (counted; flags, counts and n_valid equal to
-   ``solve_batch``'s, FleetStats equal to the result's counts),
+   on the batch (through the cached compiled solver; the second call
+   counted; every field equal bit for bit to ``solve_batch``'s, printed as
+   a ``compiled`` line, FleetStats equal to the result's counts),
    ``dist.solve_streamed`` over 4 batches of 64, and
    ``replan.replan_stream_sharded`` against ``replan.replan_stream`` over
    3 cycles;
@@ -109,11 +123,13 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs the main path and the long
-route once each under ``torch.profiler`` and prints device time by kernel,
-the number of kernels launched, the device's busy share, and the launches
-and device time of each of the port's kernels at each of its shapes.
+route once each under ``torch.profiler``, eager and compiled (a replay),
+and prints device time by kernel, the number of kernels launched, the
+device's busy share, and the launches and device time of each of the
+port's kernels at each of its shapes.
 
-Every line before the last is a JSON object or the raw ``nvidia-smi`` line.
+Every line before the last is a JSON object or the raw ``nvidia-smi`` line;
+each phase's objects carry ``t_s``, the seconds since the script started.
 Any failed check raises, so the script exits non-zero and prints no result.
 With no CUDA device it exits with code 2 at once.
 """
@@ -158,6 +174,7 @@ SLOW_PLAIN_S = 0.1           # a plain version slower than this is timed
 SLOW_PLAIN_REPS = 3          # ... over this many calls, after one warm-up
 VERY_SLOW_PLAIN_S = 1.0      # ... and slower than this by one more call
 REPLAN_CYCLES = 6            # timed cycles of each replanning stream
+REPLAN_COMPILED_CYCLES = 3   # compiled replanning cycles held to eager
 VARIANTS = {"tension": dict(smoothing_method="TENSION"),
             "astar": dict(corridor_method="ASTAR"),
             "rough": dict(rough_constraints_far_away=True),
@@ -216,8 +233,12 @@ TOLERANCE = {"fused_factor": (2e-4, 2e-3), "fused_admm_round": (5e-3, 5e-3),
 READING_ONLY = {("fused_structured_round", "nb=9,r=9")}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 # ------------------------------- the card ------------------------------------
@@ -991,10 +1012,11 @@ def collision_report(gm, res, cfg, device="cuda") -> dict:
         collision.path_collision_free(gm, car, ok_res)))
 
 
-def drive_variants(gm, scs, cfg, device="cuda") -> dict:
+def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
     """solve_batch under each of VARIANTS on the batch: the first run
     counted (launch counters set to 0 just before, read just after), then
-    REPEATS - 1 more; stage times and solves/s are medians over all."""
+    REPEATS - 1 more; stage times and solves/s are medians over all. Each
+    variant's result is kept in ``results`` (for the compiled phase)."""
     out = {}
     for name, kw in VARIANTS.items():
         vcfg = dataclasses.replace(cfg, **kw)
@@ -1003,6 +1025,8 @@ def drive_variants(gm, scs, cfg, device="cuda") -> dict:
         launches = dict(kernels.launches)
         by_shape = dict(kernels.shape_launches)
         check_outputs(res, vcfg)
+        if results is not None:
+            results[name] = res
         walls, stages = [wall], [stage_ms]
         for _ in range(REPEATS - 1):
             _, w, s, _ = timed_solve(gm, scs, vcfg, device)
@@ -1066,14 +1090,17 @@ def drive_replan(gm, scs, cfg, device="cuda") -> dict:
     return report
 
 
-def drive_main_path(gm, scs, cfg, device="cuda") -> tuple[dict, dict]:
+def drive_main_path(gm, scs, cfg, device="cuda",
+                    results=None) -> tuple[dict, dict]:
     """One counted, timed solve_batch on the card; returns (report,
-    launches)."""
+    launches). The result is kept in ``results["main"]``."""
     kernels.reset_launches()
     res, wall, stage_ms, stats = timed_solve(gm, scs, cfg, device)
     launches = dict(kernels.launches)
     by_shape = dict(kernels.shape_launches)
     check_outputs(res, cfg)
+    if results is not None:
+        results["main"] = res
     ok_fraction = float(res.ok.float().mean())
     # Two more timed runs, after the counters were read, for the spread.
     walls = [wall]
@@ -1207,7 +1234,8 @@ LONG_RUNS = (
 )
 
 
-def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda") -> dict:
+def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda",
+                     results=None) -> dict:
     """The long route's 256 scenarios under each of LONG_RUNS (at 512
     knots, the same under the rough far-away rows, at 384 segment points
     with the kernels and with the plain rounds, at 300 and 1024 knots),
@@ -1218,7 +1246,8 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda") -> dict:
     valid knots and every succeeded path collision free; each long-route
     run must meet its LONG_RUNS horizon and launch its LONG_RUNS keys; the
     fine lattice must launch K4 at 135 laterals. First the geometry stage
-    on the card's captured inputs (check_card_geometry)."""
+    on the card's captured inputs (check_card_geometry). Each run's result
+    is kept in ``results``."""
     runs = [(name, gm, scs, kw, PlannerConfig(**kw), plain, reps, need,
              horizon)
             for name, kw, plain, reps, need, horizon in LONG_RUNS]
@@ -1233,6 +1262,8 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda") -> dict:
         launches = dict(kernels.launches)
         by_shape = dict(kernels.shape_launches)
         check_outputs(res, c)
+        if results is not None:
+            results[name] = res
         walls, stages = [wall], [stage_ms]
         for _ in range(reps - 1):
             _, w, st, _ = timed_solve(g, sc, c, device, settings)
@@ -1280,6 +1311,188 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda") -> dict:
                 raise AssertionError(f"{name}: no launch {prefix}..., "
                                      f"{by_shape}")
         out[name] = report
+    return out
+
+
+# ------------------------------ compiled path --------------------------------
+
+def fields(obj, prefix="") -> dict:
+    """Every tensor of a result (nested dataclasses and tuples) by its
+    dotted field name."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if dataclasses.is_dataclass(obj):
+        items = ((f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj))
+    elif isinstance(obj, (tuple, list)):
+        items = ((str(i), o) for i, o in enumerate(obj))
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(fields(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def bit_unequal(got, want) -> list:
+    """The fields of two results that differ in any bit (NaN equal to the
+    same NaN), or in dtype or shape."""
+    fg, fw = fields(got), fields(want)
+    bad = sorted(set(fg) ^ set(fw))
+    for k in sorted(set(fg) & set(fw)):
+        a, b = fg[k], fw[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(k)
+            continue
+        if a.dtype.is_floating_point:
+            a, b = a.contiguous().view(torch.int32), \
+                b.contiguous().view(torch.int32)
+        if not torch.equal(a, b):
+            bad.append(k)
+    return bad
+
+
+def last_segments():
+    """The compiled-call cache entry used last (its Segments)."""
+    return next(reversed(pipeline.COMPILED.entries.values()))
+
+
+def pool_bytes(segs) -> int | None:
+    """Bytes the caching allocator holds in a key's graph memory pool
+    (every segment's temporaries and results), from the memory snapshot;
+    None where the snapshot does not name pools."""
+    snap = torch.cuda.memory_snapshot()
+    if not snap or "segment_pool_id" not in snap[0]:
+        return None
+    pid = tuple(segs.pool)
+    return sum(s["total_size"] for s in snap
+               if tuple(s["segment_pool_id"]) == pid)
+
+
+def compiled_run(name, gm, scs, cfg, want, device="cuda") -> dict:
+    """solve_batch_jit on one configuration: the first call (capture
+    included), then REPEATS replays, the first of them counted (launch
+    counters set to 0 just before, read just after). Every field of both
+    results must equal ``want`` (solve_batch's on the same inputs) bit for
+    bit, ok_fraction must be 1.0 and every succeeded path finite and
+    collision free."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = pipeline.solve_batch_jit(gm, scs, cfg, device=device)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    segs = last_segments()
+    replay = []
+    for i in range(REPEATS):
+        if i == 0:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = pipeline.solve_batch_jit(gm, scs, cfg, device=device)
+        torch.cuda.synchronize()
+        replay.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            launches = dict(kernels.launches)
+            by_shape = dict(kernels.shape_launches)
+    check_outputs(res, cfg)
+    ms = statistics.median(replay)
+    report = dict(
+        phase="compiled", run=name, batch=len(res.ok), n_knots=cfg.n_knots,
+        capture_s=segs.capture_seconds, first_call_s=first_s,
+        graphs=len(segs.segments), replay_ms_runs=replay, replay_ms=ms,
+        solves_per_s=len(res.ok) / ms * 1e3,
+        ok_fraction=float(res.ok.float().mean()),
+        pool_bytes=pool_bytes(segs), launches=launches,
+        shape_launches=by_shape,
+        unequal_first=bit_unequal(first, want),
+        unequal_replay=bit_unequal(res, want),
+        collision=collision_report(gm, res, cfg, device),
+        nvidia_smi=card_line())
+    emit(report)
+    if report["unequal_first"] or report["unequal_replay"]:
+        raise AssertionError(f"compiled {name}: differs from solve_batch in "
+                             f"{report['unequal_first']} / "
+                             f"{report['unequal_replay']}")
+    if report["ok_fraction"] != 1.0:
+        raise AssertionError(f"compiled {name}: ok_fraction "
+                             f"{report['ok_fraction']}")
+    col = report["collision"]
+    if col["n_ok_collision_free"] != col["n_ok"]:
+        raise AssertionError(f"compiled {name}: {col}")
+    idle = [k for k in ("fused_factor", "fused_admm_round",
+                        "fused_structured_round") if not launches[k]]
+    if cfg.corridor_method == "DP" and not launches["dp_forward"]:
+        idle.append("dp_forward")
+    if idle:
+        raise AssertionError(f"compiled {name}: no {idle} on replay")
+    return report
+
+
+def compiled_replan(gm, scs, cfg, device="cuda") -> dict:
+    """REPLAN_COMPILED_CYCLES cycles of the compiled replan_step (the
+    first captures, the others replay) against replan_step_eager, each
+    cycle's result, warm state and advanced poses bit for bit; the last
+    cycle counted."""
+    B = len(scs.n_raw)
+    warm_e = warm_c = pipeline.QPWarmStart.cold(B, cfg, device)
+    scs_e = scs_c = scs
+    unequal, cycle_ms = [], []
+    for c in range(REPLAN_COMPILED_CYCLES):
+        want = replan.replan_step_eager(gm, scs_e, warm_e, cfg, None, 1.0,
+                                        device=device)
+        last = c == REPLAN_COMPILED_CYCLES - 1
+        if last:
+            kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = replan.replan_step(gm, scs_c, warm_c, cfg, None, 1.0,
+                                 device=device)
+        torch.cuda.synchronize()
+        cycle_ms.append(1e3 * (time.perf_counter() - t0))
+        if last:
+            launches = dict(kernels.launches)
+        unequal += [f"c{c}.{k}" for k in bit_unequal(got, want)]
+        _, warm_e, scs_e = want
+        _, warm_c, scs_c = got
+    res = got[0]
+    segs = last_segments()
+    report = dict(phase="compiled", run="replan", batch=B,
+                  cycles=REPLAN_COMPILED_CYCLES, cycle_ms=cycle_ms,
+                  capture_s=segs.capture_seconds, graphs=len(segs.segments),
+                  replay_ms=statistics.median(cycle_ms[1:]),
+                  solves_per_s=B / statistics.median(cycle_ms[1:]) * 1e3,
+                  ok_fraction=float(res.ok.float().mean()),
+                  pool_bytes=pool_bytes(segs), launches=launches,
+                  unequal=unequal, nvidia_smi=card_line())
+    emit(report)
+    if unequal:
+        raise AssertionError(f"compiled replan: differs in {unequal}")
+    if report["ok_fraction"] != 1.0:
+        raise AssertionError(f"compiled replan: ok_fraction "
+                             f"{report['ok_fraction']}")
+    check_outputs(res, cfg)
+    return report
+
+
+def drive_compiled(gm, scs, cfg, gm_long, scs_long, eager: dict,
+                   device="cuda") -> dict:
+    """The compiled entry points on the card (``pipeline.solve_batch_jit``,
+    the compiled ``replan.replan_step``): the adversarial batch at the
+    default config and under every variant, the replanning cycles, and
+    every long-route run of LONG_RUNS but the plain rounds, each held bit
+    for bit to the eager result of the same call (``eager``, from the
+    earlier phases). The sharded path is held in ``drive_dist``."""
+    out = {"main": compiled_run("main", gm, scs, cfg, eager["main"], device)}
+    for name, kw in VARIANTS.items():
+        out[name] = compiled_run(name, gm, scs, dataclasses.replace(
+            cfg, **kw), eager[name], device)
+    out["replan"] = compiled_replan(gm, scs, cfg, device)
+    for name, kw, plain, _, _, _ in LONG_RUNS:
+        if plain:
+            continue
+        out[name] = compiled_run(name, gm_long, scs_long, PlannerConfig(**kw),
+                                 eager[name], device)
+        # The long route's pools are the largest: free each before the next.
+        pipeline.COMPILED.clear()
     return out
 
 
@@ -1711,10 +1924,15 @@ def drive_dist(gm, scs, cfg, device="cuda") -> dict:
     try:
         mesh = dist.make_mesh(device)
         want = pipeline.solve_batch(gm, scs, cfg, device=device)
+        # The first call captures the cached compiled solver's graphs; the
+        # counted call replays them.
+        first, _ = dist.solve_sharded(gm, scs, cfg, mesh)
         kernels.reset_launches()
         res, st = dist.solve_sharded(gm, scs, cfg, mesh)
         launches = dict(kernels.launches)
         by_shape = dict(kernels.shape_launches)
+        bits = bit_unequal(first, want) + bit_unequal(res, want)
+        cache = dist._sharded_solver_cached.cache_info()._asdict()
         B = len(want.ok)
         unequal = [f for f in golden.FLAG_FIELDS + golden.COUNT_FIELDS
                    if not bool(torch.equal(getattr(res, f),
@@ -1754,9 +1972,14 @@ def drive_dist(gm, scs, cfg, device="cuda") -> dict:
                   replan_single={k: single[k] for k in keys + (
                       "solves_per_s",)})
     emit(report)
-    if unequal:
+    emit(dict(phase="compiled", run="dist", batch=B, unequal=bits,
+              solver_cache=cache, launches=launches))
+    if unequal or bits:
         raise AssertionError(f"dist: solve_sharded differs from solve_batch "
-                             f"in {unequal}")
+                             f"in {unequal}, bits of {bits}")
+    if not cache["hits"]:
+        raise AssertionError(f"dist: the sharded solver was not reused: "
+                             f"{cache}")
     if stats != {k: float(v) for k, v in counted.items()}:
         raise AssertionError(f"dist: FleetStats {stats} != {counted}")
     idle = [k for k, c in launches.items() if not c]
@@ -1865,19 +2088,20 @@ def drive_pscan(gm, scs, cfg, device="cuda") -> dict:
 
 
 def profile_main_path(gm, scs, cfg, wall_unprofiled: float,
-                      route: str = "adversarial"):
-    """One solve_batch under torch.profiler: device time by kernel and its
-    sum, the device's busy time (one stream, so kernels do not overlap).
-    The profiler's own host overhead lengthens the profiled run, so the
-    busy share is given against the unprofiled wall time of the same
-    solve as well."""
+                      route: str = "adversarial", solve=None):
+    """One solve_batch (or ``solve``, e.g. the compiled solve_batch_jit,
+    whose graphs the caller has captured) under torch.profiler: device
+    time by kernel and its sum, the device's busy time (one stream, so
+    kernels do not overlap). The profiler's own host overhead lengthens
+    the profiled run, so the busy share is given against the unprofiled
+    wall time of the same solve as well."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline.solve_batch(gm, scs, cfg, device="cuda")
+        (solve or pipeline.solve_batch)(gm, scs, cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -1947,11 +2171,15 @@ def main() -> int:
     check_cluster_path(captured)
     check_no_fallback(captured)
 
-    report, launches = drive_main_path(gm, scs, cfg)
-    drive_variants(gm, scs, cfg)
+    eager = {}
+    report, launches = drive_main_path(gm, scs, cfg, results=eager)
+    drive_variants(gm, scs, cfg, results=eager)
     drive_replan(gm, scs, cfg)
     check_golden(cfg)
-    long_report = drive_long_route(gm_long, scs_long, gm, scs)
+    long_report = drive_long_route(gm_long, scs_long, gm, scs,
+                                   results=eager)
+    comp = drive_compiled(gm, scs, cfg, gm_long, scs_long, eager)
+    del eager
     drive_oracle(gm, scs, cfg)
     drive_long_oracle(gm_long, scs_long, cfg_long)
     drive_dist(gm, scs, cfg)
@@ -1962,6 +2190,14 @@ def main() -> int:
                           statistics.median(report["seconds_runs"]))
         profile_main_path(gm_long, scs_long, cfg_long, statistics.median(
             long_report["long"]["seconds_runs"]), route="long")
+        # The compiled path on replay (each key captured first).
+        for route, g, sc, c, run in (("adversarial", gm, scs, cfg, "main"),
+                                     ("long", gm_long, scs_long, cfg_long,
+                                      "long")):
+            pipeline.solve_batch_jit(g, sc, c)
+            profile_main_path(g, sc, c, comp[run]["replay_ms"] / 1e3,
+                              route=route + "_compiled",
+                              solve=pipeline.solve_batch_jit)
 
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():

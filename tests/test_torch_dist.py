@@ -8,7 +8,9 @@ the row split is checked without processes. Two processes: a gloo group of
 two OS processes on ``localhost``, in the pattern of
 ``tests/test_dist_multiprocess.py``, whose fleet statistics must agree
 across the ranks and with one process, also with uneven local batches, and
-whose sharded replanning stream must equal ``replan_stream``.
+whose sharded replanning stream must equal ``replan_stream``, and whose
+cached compiled sharded solver (``dist._sharded_solver``) must equal the
+eager solve of each rank's rows.
 """
 
 import json
@@ -178,8 +180,8 @@ import numpy as np, torch
 torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[5])
 from test_torch_dist import inputs, offsets, TINY, ST
-from tpu_pathopt_torch import dist, replan
-from tpu_pathopt_torch.torchutil import tree_map
+from tpu_pathopt_torch import dist, pipeline, replan
+from tpu_pathopt_torch.torchutil import tree_leaves, tree_map
 
 pid, nproc, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
     sys.argv[4]
@@ -200,6 +202,20 @@ gm_g, scs_g = dist.make_global_batch(gm, scs_local, mesh)
 r, s = dist.solve_sharded(gm_g, scs_g, TINY, mesh, ST)
 res.update(even=stats(s), global_start_y=scs_g.start_y.tolist(),
            l_local=r.l.tolist())
+
+# The cached compiled sharded solver (solve_sharded's, the same entry) on
+# this rank's rows, against the eager solve of the same rows here.
+run = dist._sharded_solver(mesh, TINY, ST)
+rc, sc = run(gm_g, scs_g, torch.ones(16, dtype=torch.bool))
+rows = dist.shard_rows(16, mesh)
+eager = pipeline.solve_batch(gm_g, tree_map(lambda a: a[rows], scs_g), TINY,
+                             ST, device="cpu")
+def bits(t):
+    return (t.view(torch.int32) if t.is_floating_point() else t).tolist()
+res.update(compiled_equals_eager=all(
+    bits(a) == bits(b) for a, b in zip(tree_leaves(rc), tree_leaves(eager))),
+    compiled_even=stats(sc),
+    solver_cache=dist._sharded_solver_cached.cache_info()._asdict())
 
 # Uneven: 5 scenarios here, 3 there; padded to 5 each, 8 real.
 un = np.linspace(-0.4, 0.4, 8).astype(np.float32)
@@ -266,6 +282,17 @@ def test_two_ranks_agree_with_each_other_and_one_process(two_ranks,
                - float(res_local.qp_iters.float().mean())) <= CHECK
     l_both = np.concatenate([w0["l_local"], w1["l_local"]])
     np.testing.assert_allclose(l_both, res_local.l.numpy(), atol=5e-3)
+
+
+def test_two_ranks_compiled_sharded_solver_equals_local_solve(two_ranks):
+    """On each rank the cached compiled sharded solver
+    (dist._sharded_solver, which solve_sharded also goes through) gives the
+    eager solve of the rank's rows bit for bit and the fleet statistics of
+    solve_sharded; its second use is a cache hit."""
+    for w in two_ranks:
+        assert w["compiled_equals_eager"]
+        assert w["compiled_even"] == w["even"]
+        assert w["solver_cache"]["hits"] >= 1
 
 
 def test_two_ranks_uneven_batches(two_ranks):

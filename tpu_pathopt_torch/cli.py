@@ -145,17 +145,18 @@ def main(argv=None):
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name})")
     t0 = time.perf_counter()
-    result = pipeline.solve(gm, sc, cfg, device=dev)
+    result = pipeline.solve_jit(gm, sc, cfg, device=dev)
     _sync(dev)
     t_first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    result = pipeline.solve(gm, sc, cfg, device=dev)
+    result = pipeline.solve_jit(gm, sc, cfg, device=dev)
     _sync(dev)
     t_warm = time.perf_counter() - t0
     nv = int(result.n_valid)
     print(f"solve: ok={bool(result.ok)} blocked={bool(result.blocked)} "
           f"knots={nv} qp_iters={int(result.qp_iters)}")
-    build = " (kernel build included)" if dev.type == "cuda" else ""
+    build = (" (kernel build and capture included)" if dev.type == "cuda"
+             else "")
     print(f"timing: first{build} {t_first:.1f}s, warm {t_warm * 1e3:.1f}ms")
     scs1 = tree_map(lambda a: a[None], sc)
     if args.profile:
@@ -218,15 +219,16 @@ def main(argv=None):
         scs = tree_map(lambda a: a.expand((B,) + a.shape).clone(), sc)
         scs.start_y = sc.start_y + offs
         t0 = time.perf_counter()
-        pipeline.solve_batch(gm, scs, cfg, device=dev)
+        pipeline.solve_batch_jit(gm, scs, cfg, device=dev)
         _sync(dev)
         t_first = time.perf_counter() - t0
         t0 = time.perf_counter()
-        batch_res = pipeline.solve_batch(gm, scs, cfg, device=dev)
+        batch_res = pipeline.solve_batch_jit(gm, scs, cfg, device=dev)
         _sync(dev)
         dt = time.perf_counter() - t0
         n_ok = int(batch_res.ok.sum())
-        print(f"batch {B}: {n_ok}/{B} ok, first {t_first:.1f}s, "
+        capture = " (capture included)" if dev.type == "cuda" else ""
+        print(f"batch {B}: {n_ok}/{B} ok, first{capture} {t_first:.1f}s, "
               f"run {dt * 1e3:.1f}ms -> {B / dt:.1f} solves/s")
 
 

@@ -20,7 +20,7 @@ import torch
 from tpu_pathopt_torch import maps
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.geometry import global_to_local, local_to_global
-from tpu_pathopt_torch.torchutil import resolve_device
+from tpu_pathopt_torch.torchutil import const, resolve_device, scalar
 
 
 @dataclasses.dataclass
@@ -51,7 +51,7 @@ def make_car_geometry(config: PlannerConfig, device=None) -> CarGeometry:
     large_r = math.sqrt(width ** 2 + ((length - width) / 2.0) ** 2) / 2.0
 
     def f(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        return const(v, dtype=torch.float32, device=dev).clone()
 
     centers = f([
         [-back + shift, -width / 2.0 + shift],    # rr
@@ -139,10 +139,9 @@ def make_box(x, y, heading, length, width, is_left=None,
     dev = resolve_device(device)
     d = BOX_DIR_UNKNOWN if is_left is None else (
         BOX_DIR_LEFT if is_left else BOX_DIR_RIGHT)
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
-                                  device=dev)
+    f = lambda v: scalar(v, torch.float32, dev)  # noqa: E731
     return Box(x=f(x), y=f(y), heading=f(heading), length=f(length),
-               width=f(width), dir=torch.tensor(d, device=dev))
+               width=f(width), dir=torch.full((), d, device=dev))
 
 
 def box_distance_to(box: Box, px, py):

@@ -21,6 +21,7 @@ import torch
 
 from tpu_pathopt_torch import kernels, maps, splines
 from tpu_pathopt_torch.config import PlannerConfig
+from tpu_pathopt_torch.torchutil import const
 from tpu_pathopt_torch.geometry import (constrain_angle, global_to_local,
                                         normal_offset)
 
@@ -242,7 +243,7 @@ def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
     dev = dir_all.device
     # A tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the correctly rounded quotient.
-    half_pi = torch.tensor(math.pi / 2, dtype=torch.float32, device=dev)
+    half_pi = const(math.pi / 2, dtype=torch.float32, device=dev)
     cost_p, dir_p = cost0, dir0
     alive = torch.ones(B, dtype=torch.bool, device=dev)
     costs, parents, alives = [], [], []
@@ -340,8 +341,8 @@ def _expand_corridor(gm, ref_x, ref_y, ref_h, rough_lb, rough_ub, path_k,
 
     t = torch.arange(_EXPAND_STEPS, dtype=f32, device=dev)
     base2 = torch.stack([node_ub + _CHECK_S, node_lb - _CHECK_S])  # (2, B, L)
-    sign2 = torch.tensor([1.0, -1.0], dtype=f32, device=dev)[:, None, None]
-    thr2 = torch.tensor([thr_up, thr_lo], dtype=f32, device=dev)
+    sign2 = const([1.0, -1.0], dtype=f32, device=dev)[:, None, None]
+    thr2 = const([thr_up, thr_lo], dtype=f32, device=dev)
     cand = base2[..., None] + sign2[..., None] * _CHECK_S * t  # (2, B, L, T)
     within = (sign2[..., None] * cand) < _CHECK_LIMIT
     cx, cy = normal_offset(ref_x[None, ..., None], ref_y[None, ..., None],

@@ -19,6 +19,7 @@ trace or compile per mesh, and the kernels run on every rank's GPU alike.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import statistics
 import time
 
@@ -149,14 +150,37 @@ def shard_rows(n_rows: int, mesh: Mesh) -> slice:
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
 
 
+def _sharded_solver(mesh: Mesh, config: PlannerConfig, settings: QPSettings,
+                    with_stats: bool = True):
+    """The cached sharded solve of one (mesh, config, settings,
+    with_stats): ``run(gm, scs, valid) -> (PathResult of this rank's rows,
+    FleetStats or None)``. A thin default-resolving wrapper, so every call
+    site hits the same cache entry whether it spells out ``with_stats`` or
+    not (the JAX package's ``_sharded_solver``)."""
+    return _sharded_solver_cached(mesh, config, settings, with_stats)
+
+
+@functools.lru_cache(maxsize=16)
+def _sharded_solver_cached(mesh: Mesh, config: PlannerConfig,
+                           settings: QPSettings, with_stats: bool):
+    """The JAX package's jitted shard_map, per rank: the compiled
+    ``pipeline.solve_batch_jit`` on the rank's rows (its CUDA graphs
+    captured on the first call and replayed after), then the fleet
+    reductions, issued from the host after the graphs."""
+    def run(gm, scs, valid):
+        return _solve_rows(gm, scs, valid, config, settings, mesh,
+                           with_stats)
+    return run
+
+
 def _solve_rows(gm, scs, valid, config, settings, mesh, with_stats=True):
-    """This rank's rows of the (padded) global batch, solved; with the
-    fleet statistics when ``with_stats``."""
+    """This rank's rows of the (padded) global batch, solved through the
+    compiled solve; with the fleet statistics when ``with_stats``."""
     dev = resolve_device(mesh.device)
     rows = shard_rows(int(valid.shape[0]), mesh)
     local = tree_map(lambda a: a[rows], to_device(scs, dev))
-    res = pipeline.solve_batch(gm, local, config, settings,
-                               device=mesh.device)
+    res = pipeline.solve_batch_jit(gm, local, config, settings,
+                                   device=mesh.device)
     if not with_stats:
         return res, None
     v = valid[rows].to(mesh.device)
@@ -191,7 +215,8 @@ def solve_sharded(gm: maps.GridMap, scenarios: pipeline.Scenario,
         scenarios, valid, B = pad_batch(scenarios, mesh.size)
     else:
         B = None
-    res, stats = _solve_rows(gm, scenarios, valid, config, settings, mesh)
+    res, stats = _sharded_solver(mesh, config, settings)(gm, scenarios,
+                                                         valid)
     if B is not None:
         start = shard_rows(int(valid.shape[0]), mesh).start
         keep = max(0, min(int(res.ok.shape[0]), B - start))
@@ -308,8 +333,8 @@ def measure_scaling(gm: maps.GridMap, make_batch, config: PlannerConfig,
         scs, valid, _ = pad_batch(make_batch(batch), m.size)
 
         def run():
-            res, st = _solve_rows(gm, scs, valid, config, settings, m,
-                                  with_stats)
+            res, st = _sharded_solver(m, config, settings, with_stats)(
+                gm, scs, valid)
             if m.device.type == "cuda":
                 torch.cuda.synchronize(m.device)
             return res, st

@@ -13,7 +13,9 @@ launches its kernel, and nowhere else, which adds one to ``launches[name]``
 and to ``shape_launches`` under the kernel and its block shape (for K2 and
 K3 also the knots and the launch plan's cluster size, e.g.
 ``fused_admm_round[nb=6,N=512,c=2]``), so a run can show that the main path
-went through each kernel at each of its shapes and plans.
+went through each kernel at each of its shapes and plans. A captured CUDA
+graph launches its kernels at every replay without the wrappers running, so
+each replay adds the counts its capture recorded (:func:`add_counts`).
 """
 
 from __future__ import annotations
@@ -58,6 +60,47 @@ def count_launch(name: str, shape: str):
     launches[name] += 1
     key = f"{name}[{shape}]"
     shape_launches[key] = shape_launches.get(key, 0) + 1
+
+
+def fill_key(tag: str, value: str):
+    """Replace ``tag`` by ``value`` in every launch key that holds it. A
+    wrapper launched before the host has read a part of its key (K2's
+    collision rows, read with the round's flags) counts under a key holding
+    the tag; the caller fills it once it has read the value."""
+    for key in [k for k in shape_launches if tag in k]:
+        n = shape_launches.pop(key)
+        new = key.replace(tag, value)
+        shape_launches[new] = shape_launches.get(new, 0) + n
+
+
+def snapshot():
+    """The launch counts as they stand, for :func:`delta` and
+    :func:`restore`."""
+    return dict(launches), dict(shape_launches)
+
+
+def delta(before) -> dict:
+    """The launches counted since ``before`` (a :func:`snapshot`), by
+    ``"name[shape]"`` key."""
+    return {k: n - before[1].get(k, 0) for k, n in shape_launches.items()
+            if n != before[1].get(k, 0)}
+
+
+def restore(before):
+    """Set the counts back to ``before``: a capture records launches without
+    running them, so its counts move to the replays (:func:`add_counts`)."""
+    launches.clear()
+    launches.update(before[0])
+    shape_launches.clear()
+    shape_launches.update(before[1])
+
+
+def add_counts(counts: dict):
+    """Count the launches ``counts`` (a :func:`delta`) once more: a graph
+    replay runs every kernel its capture recorded."""
+    for key, n in counts.items():
+        launches[key.split("[", 1)[0]] += n
+        shape_launches[key] = shape_launches.get(key, 0) + n
 
 
 def nvcc_path() -> str:

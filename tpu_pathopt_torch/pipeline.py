@@ -13,14 +13,17 @@ reference's abort semantics but are reported as flags on the result.
 
 Entry points: :func:`solve_batch`, :func:`solve`, :func:`solve_batch_warm`
 (one replanning solve, warm-started from a :class:`QPWarmStart`) and
-:func:`solve_batch_profiled` (per-stage timing). Each runs on ``cuda``
-unless the caller passes another device; with no GPU and no explicit device
-it raises.
+:func:`solve_batch_profiled` (per-stage timing), which issue every
+operation from the host; and the compiled :func:`solve_batch_jit` and
+:func:`solve_jit`, which replay CUDA graphs captured on their first call.
+Each runs on ``cuda`` unless the caller passes another device; with no GPU
+and no explicit device it raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -36,9 +39,10 @@ from tpu_pathopt_torch.smoothing.segment import segment_raw_reference
 from tpu_pathopt_torch.smoothing.tension import tension_smooth_batched
 from tpu_pathopt_torch.smoothing.tension2 import tension2_smooth_batched
 from tpu_pathopt_torch.solver.assembly import assemble_path_qp
-from tpu_pathopt_torch.solver.path_solver import solve_path_qp_batched
-from tpu_pathopt_torch.torchutil import resolve_device, take, to_device, \
-    tree_map
+from tpu_pathopt_torch.solver.path_solver import (path_setup, path_solution,
+                                                  solve_path)
+from tpu_pathopt_torch.torchutil import (EAGER, SegmentCache, resolve_device,
+                                         signature, take, to_device, tree_map)
 
 
 @dataclasses.dataclass
@@ -113,10 +117,13 @@ def _refit_splines(x, y, n_valid, step=1.0):
 
 
 # ------------------------------ pipeline stages ------------------------------
+#
+# Each stage runs its straight-line code as segments of ``drv`` (a
+# ``torchutil.Segments``): eagerly by default, captured into CUDA graphs by
+# the compiled entry points. Every tensor operation of a stage lies inside
+# one of its segments; between them the host only reads the QP rounds' flags.
 
-def stage_prep(scs: Scenario, config: PlannerConfig):
-    """B-spline fit (reference_path_smoother.cpp:490-524) + 1 m
-    segmentation (:47-85)."""
+def _prep(scs: Scenario, config: PlannerConfig):
     ok_input = scs.n_raw >= 4
     xb, yb, sb, nb = bspline.fit_and_sample(scs.raw_x, scs.raw_y, scs.n_raw,
                                             config.bspline_samples)
@@ -124,26 +131,27 @@ def stage_prep(scs: Scenario, config: PlannerConfig):
                                                config.n_segment_points)
 
 
+def stage_prep(scs: Scenario, config: PlannerConfig, drv=EAGER):
+    """B-spline fit (reference_path_smoother.cpp:490-524) + 1 m
+    segmentation (:47-85)."""
+    return drv("prep", functools.partial(_prep, config=config), scs)
+
+
 def stage_smooth(gm: maps.GridMap, prep_out, config: PlannerConfig,
-                 settings: QPSettings, stats: dict | None = None):
+                 settings: QPSettings, stats: dict | None = None, drv=EAGER):
     """Smoothing QP: TENSION2 (the default, tension_smoother_2.cpp:20-72)
     or TENSION (tension_smoother.cpp, whose clearance bounds read the
     map)."""
     ok_input, xg, yg, sg, ang, kg, n_seg = prep_out
     if config.smoothing_method == "TENSION2":
         return tension2_smooth_batched(xg, yg, ang, kg, sg, n_seg, config,
-                                       settings, stats=stats)
+                                       settings, stats=stats, drv=drv)
     return tension_smooth_batched(gm, xg, yg, ang, n_seg, config, settings,
-                                  stats=stats)
+                                  stats=stats, drv=drv)
 
 
-def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
-                   config: PlannerConfig):
-    """Smoothed-spline refit + corridor search, on a spline extended 3 m
-    past the fit (tension_smoother.cpp:40-41): the DP search
-    (graphSearchDp, :142-295; its forward pass is K4) or, with
-    ``corridor_method="ASTAR"``, the A* lattice search (graphSearch,
-    :297-484, plain tensor code)."""
+def _corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
+              config: PlannerConfig):
     x2, y2, s2, n2, ok_smooth = smooth_out
     xs2, ys2, s2_max = _refit_splines(x2, y2, n2)
     if config.corridor_method == "ASTAR":
@@ -158,19 +166,28 @@ def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
     return xs2, ys2, cor
 
 
+def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
+                   config: PlannerConfig, drv=EAGER):
+    """Smoothed-spline refit + corridor search, on a spline extended 3 m
+    past the fit (tension_smoother.cpp:40-41): the DP search
+    (graphSearchDp, :142-295; its forward pass is K4) or, with
+    ``corridor_method="ASTAR"``, the A* lattice search (graphSearch,
+    :297-484, plain tensor code)."""
+    return drv("corridor", functools.partial(_corridor, config=config), gm,
+               scs, smooth_out)
+
+
 def stage_post_smooth(cor, config: PlannerConfig, settings: QPSettings,
-                      stats: dict | None = None):
+                      stats: dict | None = None, drv=EAGER):
     """Post-smoothing QP (postSmooth, :526-580)."""
     l_post, post_ok, conv_post = post_smooth_batched(
         cor.layers_s, cor.lower, cor.upper, cor.vehicle_l, cor.n_layers,
-        config, settings, stats=stats)
-    return l_post, post_ok & conv_post
+        config, settings, stats=stats, drv=drv)
+    return l_post, drv("post.ok", torch.logical_and, post_ok, conv_post)
 
 
-def stage_geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
-                   config: PlannerConfig):
-    """Re-projection, init state, trim, resample, collision bounds
-    (processReferencePath, path_optimizer.cpp:105-122)."""
+def _geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+              config: PlannerConfig):
     cfg = config
     ref_dir = splines.heading(xs2, ys2, cor.layers_s)
     x3, y3 = normal_offset(splines.evaluate(xs2, cor.layers_s),
@@ -208,6 +225,14 @@ def stage_geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
     n_valid = torch.minimum(ref.n_valid, cb.n_valid)
     ref = dataclasses.replace(ref, n_valid=n_valid)
     return ref, cb, init_offset, init_heading_error, ok_init, n_valid
+
+
+def stage_geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+                   config: PlannerConfig, drv=EAGER):
+    """Re-projection, init state, trim, resample, collision bounds
+    (processReferencePath, path_optimizer.cpp:105-122)."""
+    return drv("geometry", functools.partial(_geometry, config=config), gm,
+               scs, xs2, ys2, cor, l_post)
 
 
 @dataclasses.dataclass
@@ -263,17 +288,10 @@ def _permute(obj, order):
     return tree_map(lambda a: a[order] if a.dim() else a, obj)
 
 
-def stage_path_qp(scs: Scenario, geo_out, config: PlannerConfig,
-                  settings: QPSettings, stats: dict | None = None,
-                  warm: QPWarmStart | None = None):
-    """Two-pass SQP path QP (optimizePath, path_optimizer.cpp:124-161).
-    Pass 2 warm-starts from pass 1's (v, y, rho). ``warm`` (optional) seeds
-    pass 1 from a previous solve's final state, the replanning warm start:
-    lanes where ``warm.valid`` holds start from its (v, y, rho), the others
-    from zeros and ``settings.rho_bar_path``, as with ``warm=None``. Both
-    passes sort the batch by expected difficulty with a stable sort and
-    scatter the results back, as the JAX package does; the sorts are pure
-    permutations."""
+def _qp1_setup(scs: Scenario, geo_out, warm, config: PlannerConfig,
+               settings: QPSettings):
+    """Pass 1's QP, sorted by expected difficulty, and its solver set up;
+    returns (run, inverse order)."""
     ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
     N = config.n_knots
     qp1 = build_path_qp(scs, geo_out, config)
@@ -295,21 +313,51 @@ def stage_path_qp(scs: Scenario, geo_out, config: PlannerConfig,
                                 0.0)[order1],
             y0_end=torch.where(w[:, None], warm.y_end.to(dtp), 0.0)[order1])
         rho0 = torch.where(w, warm.rho_bar.to(dtp), rho0)
-    sol1 = _permute(solve_path_qp_batched(_permute(qp1, order1),
-                                          settings=settings,
-                                          rho0=rho0[order1], **seeds),
-                    inv1)
+    run = path_setup(_permute(qp1, order1), settings=settings,
+                     rho0=rho0[order1], **seeds)
+    return run, inv1
+
+
+def _qp2_setup(scs: Scenario, geo_out, run1, inv1, config: PlannerConfig,
+               settings: QPSettings):
+    """Pass 1's solution in the batch's order, and pass 2's QP linearized
+    around it, sorted by pass 1's iterations and set up from its state;
+    returns (sol1, run, inverse order)."""
+    sol1 = _permute(path_solution(run1, 0), inv1)
     qp2 = build_path_qp(scs, geo_out, config, sol1=sol1)
     order = torch.argsort(sol1.iters, stable=True)
     inv = torch.argsort(order, stable=True)
-    sol2 = _permute(solve_path_qp_batched(
-        _permute(qp2, order), v0=sol1.v[order], y0_knot=sol1.y_knot[order],
-        y0_end=sol1.y_end[order], settings=settings,
-        rho0=sol1.rho_bar[order]), inv)
+    run = path_setup(_permute(qp2, order), v0=sol1.v[order],
+                     y0_knot=sol1.y_knot[order], y0_end=sol1.y_end[order],
+                     settings=settings, rho0=sol1.rho_bar[order])
+    return sol1, run, inv
+
+
+def stage_path_qp(scs: Scenario, geo_out, config: PlannerConfig,
+                  settings: QPSettings, stats: dict | None = None,
+                  warm: QPWarmStart | None = None, drv=EAGER):
+    """Two-pass SQP path QP (optimizePath, path_optimizer.cpp:124-161).
+    Pass 2 warm-starts from pass 1's (v, y, rho). ``warm`` (optional) seeds
+    pass 1 from a previous solve's final state, the replanning warm start:
+    lanes where ``warm.valid`` holds start from its (v, y, rho), the others
+    from zeros and ``settings.rho_bar_path``, as with ``warm=None``. Both
+    passes sort the batch by expected difficulty with a stable sort and
+    scatter the results back, as the JAX package does; the sorts are pure
+    permutations."""
+    run1, inv1 = drv("qp1.setup", functools.partial(
+        _qp1_setup, config=config, settings=settings), scs, geo_out, warm)
+    run1, rounds1 = solve_path(drv, "qp1", run1, settings)
+    sol1, run2, inv = drv("qp2.setup", functools.partial(
+        _qp2_setup, config=config, settings=settings), scs, geo_out, run1,
+        inv1)
+    run2, rounds2 = solve_path(drv, "qp2", run2, settings)
+    sol2 = drv("qp2.finish", lambda run, inv: _permute(
+        path_solution(run, 0), inv), run2, inv)
     if stats is not None:
-        stats["qp1_rounds"] = sol1.rounds
-        stats["qp2_rounds"] = sol2.rounds
-    return sol1, sol2
+        stats["qp1_rounds"] = rounds1
+        stats["qp2_rounds"] = rounds2
+    return (dataclasses.replace(sol1, rounds=rounds1),
+            dataclasses.replace(sol2, rounds=rounds2))
 
 
 def stage_finalize(ref, sol2, n_valid, config: PlannerConfig):
@@ -331,21 +379,21 @@ def stage_finalize(ref, sol2, n_valid, config: PlannerConfig):
 
 def run_to_geometry(gm: maps.GridMap, scs: Scenario, config: PlannerConfig,
                     settings: QPSettings, stats: dict | None = None,
-                    hook=None):
+                    hook=None, drv=EAGER):
     """The stage chain up through ``stage_geometry``. Returns
     ``(geo_out, (ok_input, ok_smooth, cor, ok_post))``. ``hook(name)``, if
     given, is called before each stage."""
     mark = hook or (lambda name: None)
     mark("prep")
-    prep_out = stage_prep(scs, config)
+    prep_out = stage_prep(scs, config, drv)
     mark("smooth")
-    smooth_out = stage_smooth(gm, prep_out, config, settings, stats)
+    smooth_out = stage_smooth(gm, prep_out, config, settings, stats, drv)
     mark("corridor")
-    xs2, ys2, cor = stage_corridor(gm, scs, smooth_out, config)
+    xs2, ys2, cor = stage_corridor(gm, scs, smooth_out, config, drv)
     mark("post_smooth")
-    l_post, ok_post = stage_post_smooth(cor, config, settings, stats)
+    l_post, ok_post = stage_post_smooth(cor, config, settings, stats, drv)
     mark("geometry")
-    geo_out = stage_geometry(gm, scs, xs2, ys2, cor, l_post, config)
+    geo_out = stage_geometry(gm, scs, xs2, ys2, cor, l_post, config, drv)
     return geo_out, (prep_out[0], smooth_out[4], cor, ok_post)
 
 
@@ -358,13 +406,60 @@ def _set_precision():
     torch.set_float32_matmul_precision("highest")
 
 
+def _finalize(scs: Scenario, geo_out, oks, sol1, sol2, config: PlannerConfig,
+              return_warm: bool, tail):
+    ok_input, ok_smooth, cor, ok_post = oks
+    ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
+    ok_qp = sol1.converged & sol2.converged
+    x_out, y_out, heading_out, l, e, k, dk, s_out = stage_finalize(
+        ref, sol2, n_valid, config)
+    ok = ok_input & ok_smooth & cor.ok & ok_post & ok_init & ok_qp
+    result = PathResult(
+        x=x_out, y=y_out, heading=heading_out, l=l, d_heading=e, k=k, d_k=dk,
+        s=s_out, n_valid=n_valid, ok=ok, blocked=cb.blocked,
+        qp_iters=sol1.iters + sol2.iters, ok_input=ok_input,
+        ok_smooth=ok_smooth, ok_corridor=cor.ok, ok_post=ok_post,
+        ok_init=ok_init, ok_qp=ok_qp, horizon_truncated=ref.truncated,
+        bounds=cb)
+    out = (result,)
+    if return_warm:
+        # The state for the next solve of the same (advanced) query; lanes
+        # whose QP did not converge start cold next time.
+        out += (QPWarmStart(v=sol2.v, y_knot=sol2.y_knot, y_end=sol2.y_end,
+                            rho_bar=sol2.rho_bar, valid=ok_qp),)
+    if tail is not None:
+        out += (tail(scs, result),)
+    return out[0] if len(out) == 1 else out
+
+
+def _pipeline(drv, gm: maps.GridMap, scs: Scenario, config: PlannerConfig,
+              settings: QPSettings, stats=None, hook=None, warm=None,
+              return_warm: bool = False, tail=None):
+    """The whole stage chain on inputs already on the device, run as the
+    segments of ``drv``. The last segment builds the result (and the warm
+    state with ``return_warm``, and ``tail(scs, result)`` if given)."""
+    mark = hook or (lambda name: None)
+    geo_out, oks = run_to_geometry(gm, scs, config, settings, stats, hook,
+                                   drv)
+    mark("path_qp")
+    sol1, sol2 = stage_path_qp(scs, geo_out, config, settings, stats, warm,
+                               drv)
+    mark("finalize")
+    out = drv("finalize", functools.partial(
+        _finalize, config=config, return_warm=return_warm, tail=tail),
+        scs, geo_out, oks, sol1, sol2)
+    mark("done")
+    return out
+
+
 def solve_batch(gm: maps.GridMap, scenarios: Scenario, config: PlannerConfig,
                 settings: QPSettings | None = None, device=None,
                 stats: dict | None = None, hook=None) -> PathResult:
     """Solve a batch of scenarios sharing one grid map, on ``device``
     (``cuda`` unless the caller asks for another; the map and scenarios are
     moved there). ``settings=None`` derives the solver settings from the
-    config's qp_* fields.
+    config's qp_* fields. Every operation is issued from the host as it
+    comes; :func:`solve_batch_jit` replays captured ones.
 
     ``stats``, if given, receives the batch-global round count of each QP
     (``smooth_rounds``, ``post_rounds``, ``qp1_rounds``, ``qp2_rounds``).
@@ -387,32 +482,8 @@ def _solve_batch_impl(gm: maps.GridMap, scenarios: Scenario,
     scs = to_device(scenarios, dev)
     if warm is not None:
         warm = to_device(warm, dev)
-    mark = hook or (lambda name: None)
-
-    geo_out, (ok_input, ok_smooth, cor, ok_post) = run_to_geometry(
-        gm, scs, config, settings, stats, hook)
-    ref, cb, init_offset, init_heading_error, ok_init, n_valid = geo_out
-    mark("path_qp")
-    sol1, sol2 = stage_path_qp(scs, geo_out, config, settings, stats, warm)
-    ok_qp = sol1.converged & sol2.converged
-    mark("finalize")
-    x_out, y_out, heading_out, l, e, k, dk, s_out = stage_finalize(
-        ref, sol2, n_valid, config)
-    ok = ok_input & ok_smooth & cor.ok & ok_post & ok_init & ok_qp
-    mark("done")
-    result = PathResult(
-        x=x_out, y=y_out, heading=heading_out, l=l, d_heading=e, k=k, d_k=dk,
-        s=s_out, n_valid=n_valid, ok=ok, blocked=cb.blocked,
-        qp_iters=sol1.iters + sol2.iters, ok_input=ok_input,
-        ok_smooth=ok_smooth, ok_corridor=cor.ok, ok_post=ok_post,
-        ok_init=ok_init, ok_qp=ok_qp, horizon_truncated=ref.truncated,
-        bounds=cb)
-    if not return_warm:
-        return result
-    # The state for the next solve of the same (advanced) query; lanes whose
-    # QP did not converge start cold next time.
-    return result, QPWarmStart(v=sol2.v, y_knot=sol2.y_knot, y_end=sol2.y_end,
-                               rho_bar=sol2.rho_bar, valid=ok_qp)
+    return _pipeline(EAGER, gm, scs, config, settings, stats, hook, warm,
+                     return_warm)
 
 
 def solve_batch_warm(gm: maps.GridMap, scenarios: Scenario,
@@ -438,7 +509,8 @@ def solve_batch_profiled(gm: maps.GridMap, scenarios: Scenario,
     device's time to finish it plus the host's time to issue it. Without a
     recorder one is made and its times are logged. The same stages run on
     the same inputs, so the result equals :func:`solve_batch`'s; the
-    synchronisations make the batch slower."""
+    synchronisations make the batch slower. It runs eagerly, stage by
+    stage, as the JAX package's does."""
     from tpu_pathopt_torch import profiling
     dev = resolve_device(device)
     gm = to_device(gm, dev)
@@ -463,4 +535,63 @@ def solve(gm: maps.GridMap, sc: Scenario, config: PlannerConfig,
     ``sc`` holds one query without a batch axis; so does the result."""
     scs = tree_map(lambda a: torch.as_tensor(a)[None], sc)
     res = solve_batch(gm, scs, config, settings, device=device)
+    return tree_map(lambda a: a[0], res)
+
+
+# ----------------------------- compiled entry points -------------------------
+#
+# The counterparts of the JAX package's ``solve_jit`` / ``solve_batch_jit``
+# (``jax.jit`` with ``config`` and ``settings`` static). A compiled call runs
+# the same stage chain as :func:`solve_batch`, as segments between the QP
+# rounds' host reads (``torchutil.Segments``). On CUDA each segment is
+# captured into a CUDA graph on the first call of its static key (config,
+# settings, every input's shape and dtype and the map's non-tensor fields,
+# whether a warm start is passed, the device) and replayed on every later
+# call; a failed capture or replay raises, nothing falls back to the eager
+# path. On the CPU the same segments run without capture. The caller's
+# inputs are copied into the key's static buffers on every call, and the
+# results are cloned out of the graphs' memory, so a later call never
+# changes a result already returned. The results are the eager path's, bit
+# for bit: the same kernels run on the same values.
+
+COMPILED = SegmentCache(maxsize=16)
+
+
+def compiled_call(gm: maps.GridMap, scenarios: Scenario,
+                  config: PlannerConfig, settings: QPSettings | None,
+                  device=None, stats: dict | None = None,
+                  warm: QPWarmStart | None = None, return_warm: bool = False,
+                  tail=None, tail_key=None):
+    """One compiled call of the stage chain (see above); ``tail`` and
+    ``return_warm`` as in :func:`_pipeline`, ``tail_key`` the static
+    arguments ``tail`` depends on (part of the cache key)."""
+    if settings is None:
+        settings = config.qp_settings()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _set_precision()
+    inputs = (gm, scenarios, warm)
+    key = (config, settings, return_warm, tail_key, dev, signature(inputs))
+    segs = COMPILED.get(key, dev)
+    gm_s, scs_s, warm_s = segs.load(inputs)
+    out = _pipeline(segs, gm_s, scs_s, config, settings, stats, None, warm_s,
+                    return_warm, tail)
+    return tree_map(torch.clone, out)
+
+
+def solve_batch_jit(gm: maps.GridMap, scenarios: Scenario,
+                    config: PlannerConfig, settings: QPSettings | None = None,
+                    device=None, stats: dict | None = None) -> PathResult:
+    """:func:`solve_batch`, compiled: captured once per static key, then
+    replayed (see above). Same arguments and result, bit for bit."""
+    return compiled_call(gm, scenarios, config, settings, device, stats)
+
+
+def solve_jit(gm: maps.GridMap, sc: Scenario, config: PlannerConfig,
+              settings: QPSettings | None = None, device=None) -> PathResult:
+    """:func:`solve`, compiled: a batch of one through
+    :func:`solve_batch_jit`."""
+    scs = tree_map(lambda a: torch.as_tensor(a)[None], sc)
+    res = solve_batch_jit(gm, scs, config, settings, device=device)
     return tree_map(lambda a: a[0], res)

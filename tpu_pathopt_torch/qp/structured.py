@@ -11,13 +11,16 @@ Serves the TENSION2 (nb = 4, r = 3), post-smoothing (nb = 3, r = 3) and
 TENSION (nb = 9, r = 9) QPs.
 OSQP semantics: relaxed ADMM, per-row rho classes, per-element adaptive rho
 with selective refactor, unscaled-residual termination; converged elements
-stay frozen. The rounds run batch-global; each round's loop test and
-refactor gate are host reads.
+stay frozen. The rounds run batch-global (:func:`run_rounds`): setup,
+round and refactor are separate functions over one in-place state, and each
+round ends in one host read of its loop test and refactor gate, so a
+compiled call captures each of them as a CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -25,6 +28,7 @@ from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.qp.admm import INFTY, QPSettings
 from tpu_pathopt_torch.solver import fused_rounds
 from tpu_pathopt_torch.solver.fused_rounds import lane, unlane
+from tpu_pathopt_torch.torchutil import EAGER
 
 
 @dataclasses.dataclass
@@ -122,6 +126,182 @@ class StructuredSolution:
     rounds: int = 0          # batch-global rounds run (host-side loop)
 
 
+@dataclasses.dataclass
+class StructuredRun:
+    """One batch of block-banded solves in flight: the QP, its kernel-layout
+    copies and row classes (read only), and the loop state, which the
+    rounds and refactors update in place (:func:`run_rounds`). ``flags``
+    is the round's two host-read values: any element still active, any
+    element that needs a refactor."""
+    qp: BlockBandedQP
+    cls_rho: torch.Tensor
+    lanes: tuple | None      # (a_cur, a_prev, q, lb, ub) batch-last
+    rho: torch.Tensor
+    Ci: torch.Tensor
+    W: torch.Tensor
+    v: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    rho_bar: torch.Tensor
+    it: torch.Tensor
+    conv: torch.Tensor
+    pri: torch.Tensor
+    dua: torch.Tensor
+    need: torch.Tensor
+    flags: torch.Tensor
+
+
+def _factor(qp: BlockBandedQP, cls_rho, rho_bar, st: QPSettings):
+    rho = rho_bar[:, None, None] * cls_rho
+    diag, offp = normal_blocks(qp, rho, st.sigma)
+    if st.fused_rounds:
+        Ci_l, Wp_l = fused_rounds.fused_factor(lane(diag), lane(offp))
+        return rho, Ci_l, Wp_l
+    C, W = btridiag.factor(diag, offp[:, 1:])
+    Cinv, W = btridiag.inv_factors(C, W)
+    return rho, Cinv, W
+
+
+def structured_setup(qp: BlockBandedQP, v0=None, y0=None,
+                     settings: QPSettings = QPSettings()) -> StructuredRun:
+    """The factorization (K1 with ``settings.fused_rounds``) and the loop
+    state before the first round. Every state tensor is new, so the rounds
+    may write into it (a given ``v0``/``y0`` is copied)."""
+    st = settings
+    B, N, nb = qp.q.shape
+    r = qp.r
+    dt, dev = qp.q.dtype, qp.q.device
+    cls_rho = rho_classes(qp)
+    lanes = (tuple(lane(a) for a in (qp.a_cur, qp.a_prev, qp.q, qp.lb,
+                                     qp.ub))
+             if st.fused_rounds else None)
+    rho_bar = torch.full((B,), st.rho_bar, dtype=dt, device=dev)
+    rho, Ci, W = _factor(qp, cls_rho, rho_bar, st)
+    v = torch.zeros((B, N, nb), dtype=dt, device=dev) if v0 is None \
+        else v0.clone()
+    y = torch.zeros((B, N, r), dtype=dt, device=dev) if y0 is None \
+        else y0.clone()
+    return StructuredRun(
+        qp=qp, cls_rho=cls_rho, lanes=lanes, rho=rho, Ci=Ci, W=W, v=v,
+        z=a_mul(qp, v), y=y, rho_bar=rho_bar,
+        it=torch.zeros((B,), dtype=torch.long, device=dev),
+        conv=torch.zeros((B,), dtype=torch.bool, device=dev),
+        pri=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        dua=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        need=torch.zeros((B,), dtype=torch.bool, device=dev),
+        flags=torch.ones((2,), dtype=torch.bool, device=dev))
+
+
+def structured_round(run: StructuredRun, settings: QPSettings
+                     ) -> StructuredRun:
+    """One round: ``check_every`` ADMM iterations (K3, or the plain steps),
+    the residuals, termination and the adaptive-rho update; the refactor
+    it asks for is :func:`structured_refactor`."""
+    st = settings
+    qp, conv = run.qp, run.conv
+    if st.fused_rounds:
+        ac_l, ap_l, q_l, lb_l, ub_l = run.lanes
+        v_n, z_n, y_n = map(unlane, fused_rounds.fused_structured_round(
+            run.Ci, run.W, ac_l, ap_l, q_l, lb_l, ub_l, lane(run.rho),
+            lane(run.v), lane(run.z), lane(run.y), iters=st.check_every,
+            alpha=st.alpha, sigma=st.sigma))
+    else:
+        state = (run.v, run.z, run.y)
+        for _ in range(st.check_every):
+            state = fused_rounds.structured_step(qp, run.Ci, run.W, run.rho,
+                                                 state, st.alpha, st.sigma)
+        v_n, z_n, y_n = state
+
+    c3 = conv[:, None, None]
+    v = torch.where(c3, run.v, v_n)
+    z = torch.where(c3, run.z, z_n)
+    y = torch.where(c3, run.y, y_n)
+    it = torch.where(conv, run.it, run.it + st.check_every)
+
+    amax = fused_rounds._amax
+    Av = a_mul(qp, v)
+    pv = p_mul(qp, v) + qp.q
+    Aty = at_mul(qp, y)
+    pri_res = amax(Av - z)
+    dua_res = amax(pv + Aty)
+    n_az = torch.maximum(amax(Av), amax(z))
+    eps_pri = st.eps_abs + st.eps_rel * n_az
+    eps_dua = st.eps_abs + st.eps_rel * torch.maximum(
+        torch.maximum(amax(pv - qp.q), amax(Aty)), amax(qp.q))
+    conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua))
+
+    rho_bar, need = run.rho_bar, torch.zeros_like(conv)
+    if st.adaptive_rho:
+        num = pri_res / torch.clamp(n_az, min=1e-12)
+        den = dua_res / torch.clamp(torch.maximum(
+            amax(pv - qp.q), torch.maximum(amax(Aty), amax(qp.q))),
+            min=1e-12)
+        ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
+        need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
+        rho_bar = torch.where(
+            need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
+    flags = torch.stack([torch.any(~conv_new & (it < st.max_iter)),
+                         torch.any(need)])
+    return dataclasses.replace(
+        run, v=v, z=z, y=y, it=it, conv=conv_new, rho_bar=rho_bar, need=need,
+        pri=torch.where(conv, run.pri, pri_res),
+        dua=torch.where(conv, run.dua, dua_res), flags=flags)
+
+
+def structured_refactor(run: StructuredRun, settings: QPSettings
+                        ) -> StructuredRun:
+    """Refactor at the adapted rho (K1) and keep the new factors on the
+    elements that asked for them."""
+    need = run.need
+    rho_n, Ci_n, W_n = _factor(run.qp, run.cls_rho, run.rho_bar, settings)
+    fsel = (need[None, None, None, :] if settings.fused_rounds
+            else need[:, None, None, None])
+    return dataclasses.replace(
+        run, rho=torch.where(need[:, None, None], rho_n, run.rho),
+        Ci=torch.where(fsel, Ci_n, run.Ci), W=torch.where(fsel, W_n, run.W))
+
+
+def run_rounds(drv, name: str, run, round_fn, refactor_fn, max_iter: int,
+               on_read=None):
+    """The host loop of a QP solve, shared by every solver of the port:
+    rounds until no element is active, each ended by one host read of the
+    round's ``flags`` (any element active, any element needs a refactor),
+    and a refactor after each round that asks for one. ``drv`` is a
+    ``torchutil.Segments``; the round and the refactor run as its segments
+    ``name + ".round"`` and ``name + ".refactor"``, in place on ``run``.
+    ``on_read(flags)``, if given, sees every read. Returns (run, rounds).
+    Every element starts unconverged at iteration 0, so the first round
+    runs without a read whenever ``max_iter`` > 0."""
+    rounds = 0
+    active = max_iter > 0
+    while active:
+        run = drv(name + ".round", round_fn, run, into=run)
+        rounds += 1
+        flags = drv.read(run.flags)
+        if on_read is not None:
+            on_read(flags)
+        active, need = flags[0], flags[1]
+        if need:
+            run = drv(name + ".refactor", refactor_fn, run, into=run)
+    return run, rounds
+
+
+def structured_solution(run: StructuredRun, rounds: int
+                        ) -> StructuredSolution:
+    return StructuredSolution(v=run.v, y=run.y, z=run.z, iters=run.it,
+                              converged=run.conv, pri_res=run.pri,
+                              dua_res=run.dua, rounds=rounds)
+
+
+def solve_structured(drv, name: str, run: StructuredRun,
+                     settings: QPSettings) -> tuple[StructuredRun, int]:
+    """The rounds of a set-up solve through the segment runner ``drv``."""
+    return run_rounds(
+        drv, name, run, functools.partial(structured_round, settings=settings),
+        functools.partial(structured_refactor, settings=settings),
+        settings.max_iter)
+
+
 def solve_structured_batched(qp: BlockBandedQP, v0=None, y0=None,
                              settings: QPSettings = QPSettings()
                              ) -> StructuredSolution:
@@ -131,90 +311,6 @@ def solve_structured_batched(qp: BlockBandedQP, v0=None, y0=None,
     through the kernels K1 and K3 (their plain versions for CPU tensors);
     otherwise through the plain PyTorch rounds. Residuals, termination and
     the adaptive-rho logic run outside the kernel."""
-    st = settings
-    B, N, nb = qp.q.shape
-    r = qp.r
-    dt, dev = qp.q.dtype, qp.q.device
-    fused = st.fused_rounds
-    cls_rho = rho_classes(qp)
-    if fused:
-        ac_l, ap_l, q_l = lane(qp.a_cur), lane(qp.a_prev), lane(qp.q)
-        lb_l, ub_l = lane(qp.lb), lane(qp.ub)
-
-    def factor(rho_bar):
-        rho = rho_bar[:, None, None] * cls_rho
-        diag, offp = normal_blocks(qp, rho, st.sigma)
-        if fused:
-            Ci_l, Wp_l = fused_rounds.fused_factor(lane(diag), lane(offp))
-            return rho, Ci_l, Wp_l
-        C, W = btridiag.factor(diag, offp[:, 1:])
-        Cinv, W = btridiag.inv_factors(C, W)
-        return rho, Cinv, W
-
-    rho_bar = torch.full((B,), st.rho_bar, dtype=dt, device=dev)
-    rho, Ci, W = factor(rho_bar)
-    v = torch.zeros((B, N, nb), dtype=dt, device=dev) if v0 is None else v0
-    y = torch.zeros((B, N, r), dtype=dt, device=dev) if y0 is None else y0
-    z = a_mul(qp, v)
-    it = torch.zeros((B,), dtype=torch.long, device=dev)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pri = torch.full((B,), torch.inf, dtype=dt, device=dev)
-    dua = torch.full((B,), torch.inf, dtype=dt, device=dev)
-    amax = fused_rounds._amax
-    rounds = 0
-
-    while bool(torch.any(~conv & (it < st.max_iter))):
-        rounds += 1
-        if fused:
-            v_n, z_n, y_n = map(unlane, fused_rounds.fused_structured_round(
-                Ci, W, ac_l, ap_l, q_l, lb_l, ub_l, lane(rho), lane(v),
-                lane(z), lane(y), iters=st.check_every, alpha=st.alpha,
-                sigma=st.sigma))
-        else:
-            state = (v, z, y)
-            for _ in range(st.check_every):
-                state = fused_rounds.structured_step(qp, Ci, W, rho, state,
-                                                     st.alpha, st.sigma)
-            v_n, z_n, y_n = state
-
-        c3 = conv[:, None, None]
-        v = torch.where(c3, v, v_n)
-        z = torch.where(c3, z, z_n)
-        y = torch.where(c3, y, y_n)
-        it = torch.where(conv, it, it + st.check_every)
-
-        Av = a_mul(qp, v)
-        pv = p_mul(qp, v) + qp.q
-        Aty = at_mul(qp, y)
-        pri_res = amax(Av - z)
-        dua_res = amax(pv + Aty)
-        n_az = torch.maximum(amax(Av), amax(z))
-        eps_pri = st.eps_abs + st.eps_rel * n_az
-        eps_dua = st.eps_abs + st.eps_rel * torch.maximum(
-            torch.maximum(amax(pv - qp.q), amax(Aty)), amax(qp.q))
-        conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua))
-
-        if st.adaptive_rho:
-            num = pri_res / torch.clamp(n_az, min=1e-12)
-            den = dua_res / torch.clamp(torch.maximum(
-                amax(pv - qp.q), torch.maximum(amax(Aty), amax(qp.q))),
-                min=1e-12)
-            ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
-            need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
-            rho_bar_new = torch.where(
-                need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
-            if bool(torch.any(need)):
-                rho_n, Ci_n, W_n = factor(rho_bar_new)
-                fsel = (need[None, None, None, :] if fused
-                        else need[:, None, None, None])
-                rho = torch.where(need[:, None, None], rho_n, rho)
-                Ci = torch.where(fsel, Ci_n, Ci)
-                W = torch.where(fsel, W_n, W)
-            rho_bar = rho_bar_new
-
-        pri = torch.where(conv, pri, pri_res)
-        dua = torch.where(conv, dua, dua_res)
-        conv = conv_new
-
-    return StructuredSolution(v=v, y=y, z=z, iters=it, converged=conv,
-                              pri_res=pri, dua_res=dua, rounds=rounds)
+    run = structured_setup(qp, v0, y0, settings)
+    run, rounds = solve_structured(EAGER, "qp", run, settings)
+    return structured_solution(run, rounds)

@@ -15,6 +15,7 @@ tolerances.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -84,10 +85,28 @@ def replan_step(gm: maps.GridMap, scs: pipeline.Scenario,
                 warm: pipeline.QPWarmStart, config: PlannerConfig,
                 settings: QPSettings | None = None, advance_ds: float = 1.0,
                 use_warm: bool = True, device=None):
-    """One replanning cycle: solve (warm-started), carry the solver state,
-    advance the batch along the solved paths. Returns ``(PathResult,
-    QPWarmStart, Scenario)`` on ``device``. ``use_warm=False`` runs the same
+    """One replanning cycle, compiled (the JAX package's jitted
+    ``replan_step``, static in ``config``, ``settings``, ``advance_ds`` and
+    ``use_warm``): solve (warm-started), carry the solver state, advance the
+    batch along the solved paths, all in the segments of one compiled call
+    (``pipeline.compiled_call``: CUDA graphs captured on the first call of
+    a key and replayed after; the same segments uncaptured on the CPU).
+    Returns ``(PathResult, QPWarmStart, Scenario)`` on ``device``, bit for
+    bit :func:`replan_step_eager`'s. ``use_warm=False`` runs the same
     cycle cold (to measure what warm starting buys)."""
+    return pipeline.compiled_call(
+        gm, scs, config, settings, device,
+        warm=warm if use_warm else None, return_warm=True,
+        tail=lambda s, res: advance_scenarios(s, res, advance_ds),
+        tail_key=("replan_step", advance_ds, use_warm))
+
+
+def replan_step_eager(gm: maps.GridMap, scs: pipeline.Scenario,
+                      warm: pipeline.QPWarmStart, config: PlannerConfig,
+                      settings: QPSettings | None = None,
+                      advance_ds: float = 1.0, use_warm: bool = True,
+                      device=None):
+    """:func:`replan_step` with every operation issued from the host."""
     dev = resolve_device(device)
     scs = to_device(scs, dev)
     res, warm_out = pipeline.solve_batch_warm(
@@ -119,8 +138,8 @@ def _drive_stream(step, scs, warm, n_steps: int, consume,
 
     ``step(scs, warm) -> (PathResult, warm, scs, (n_ok, sum_iters))`` with
     the statistics as 0-d device tensors, over ``n_scenarios`` scenarios
-    (default: the batch's). The QP solvers still read two values to the
-    host at the end of every round, so a cycle is not free of
+    (default: the batch's). The QP solvers still read the round's flags to
+    the host at the end of every round, so a cycle is not free of
     synchronisation; the stream adds none of its own."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
@@ -157,8 +176,9 @@ def replan_stream(gm: maps.GridMap, scs: pipeline.Scenario,
                   device=None) -> ReplanStats:
     """Run ``n_steps`` replanning cycles over a scenario batch on ``device``
     (``cuda`` unless the caller asks for another): the reference demo's
-    30 Hz loop (demo.cpp:133-211) as a batch. See :func:`_drive_stream`
-    for the dispatch and synchronisation."""
+    30 Hz loop (demo.cpp:133-211) as a batch, each cycle the compiled
+    :func:`replan_step`. See :func:`_drive_stream` for the dispatch and
+    synchronisation."""
     dev = resolve_device(device)
     gm, scs = to_device(gm, dev), to_device(scs, dev)
     warm = pipeline.QPWarmStart.cold(int(scs.n_raw.shape[0]), config, dev)
@@ -194,12 +214,27 @@ def replan_stream_sharded(gm: maps.GridMap, scs: pipeline.Scenario,
     rows = dist.shard_rows(B, mesh)
     local = to_device(tree_map(lambda a: a[rows], scs), dev)
     warm = pipeline.QPWarmStart.cold(int(local.n_raw.shape[0]), config, dev)
+    run = _sharded_replan_step(mesh, config, settings, advance_ds)
+    return _drive_stream(lambda s, w: run(gm, s, w), local, warm, n_steps,
+                         consume, n_scenarios=B)
 
-    def step(scs_i, warm_i):
+
+@functools.lru_cache(maxsize=16)
+def _sharded_replan_step(mesh, config: PlannerConfig,
+                         settings: QPSettings | None, advance_ds: float):
+    """The cached replanning cycle of one rank (the JAX package's jitted
+    shard_map ``_sharded_replan_step``): the compiled :func:`replan_step`
+    on this rank's rows and their warm state, then one ``all_reduce`` of
+    the cycle's fleet scalars (scenarios ok, ADMM iterations), issued from
+    the host after the graphs. ``step(gm, scs, warm) -> (PathResult, warm,
+    scs, (n_ok, sum_iters))``."""
+    from tpu_pathopt_torch import dist
+
+    def step(gm, scs_i, warm_i):
         res, warm_o, scs_o = replan_step(gm, scs_i, warm_i, config, settings,
-                                         advance_ds, True, dev)
+                                         advance_ds, True, mesh.device)
         sums = dist.fleet_reduce(torch.stack([res.ok.sum(),
                                          res.qp_iters.long().sum()]), mesh)
         return res, warm_o, scs_o, (sums[0], sums[1])
 
-    return _drive_stream(step, local, warm, n_steps, consume, n_scenarios=B)
+    return step

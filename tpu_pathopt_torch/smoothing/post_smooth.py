@@ -18,6 +18,7 @@ import torch
 
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.qp import admm, structured
+from tpu_pathopt_torch.torchutil import EAGER, scalar
 
 
 def build_post_qp(layers_s, lower, upper, vehicle_l, n_layers,
@@ -73,10 +74,10 @@ def post_smooth(layers_s, lower, upper, vehicle_l, n_layers,
     form with ``admm.solve_qp``. Returns (l (L,), ok, converged); ok is the
     reference's >= 4 layer requirement."""
     L = layers_s.shape[0]
-    n_layers = torch.as_tensor(n_layers, device=layers_s.device)
+    n_layers = scalar(n_layers, device=layers_s.device)
     dense = build_post_qp(layers_s[None], lower[None], upper[None],
-                          torch.as_tensor(vehicle_l, dtype=layers_s.dtype,
-                                          device=layers_s.device).reshape(1),
+                          scalar(vehicle_l, layers_s.dtype,
+                                 layers_s.device).reshape(1),
                           n_layers.reshape(1), config)
     sol = admm.solve_qp(*(a[0] for a in dense), settings=settings)
     return sol.x[:L], n_layers >= 4, sol.converged
@@ -135,12 +136,16 @@ def build_post_structured(layers_s, lower, upper, vehicle_l, n_layers,
 def post_smooth_batched(layers_s, lower, upper, vehicle_l, n_layers,
                         config: PlannerConfig,
                         settings: admm.QPSettings = admm.QPSettings(),
-                        stats: dict | None = None):
+                        stats: dict | None = None, drv=EAGER):
     """Solve the batch; returns (l (B, L), ok, converged). ``stats``, if
-    given, receives the round count under ``"post_rounds"``."""
-    qp = build_post_structured(layers_s, lower, upper, vehicle_l, n_layers,
-                               config)
-    sol = structured.solve_structured_batched(qp, settings=settings)
+    given, receives the round count under ``"post_rounds"``. ``drv`` runs
+    the set-up, the rounds and the finish as its segments
+    (``torchutil.Segments``; eager by default)."""
+    run = drv("post.setup", lambda *a: structured.structured_setup(
+        build_post_structured(*a, config), settings=settings),
+        layers_s, lower, upper, vehicle_l, n_layers)
+    run, rounds = structured.solve_structured(drv, "post", run, settings)
     if stats is not None:
-        stats["post_rounds"] = sol.rounds
-    return sol.v[:, :, 0], n_layers >= 4, sol.converged
+        stats["post_rounds"] = rounds
+    return drv("post.finish", lambda run, n: (run.v[:, :, 0], n >= 4,
+                                              run.conv), run, n_layers)

@@ -25,6 +25,8 @@ import torch
 from tpu_pathopt_torch import maps
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.qp import admm, structured
+from tpu_pathopt_torch.smoothing.tension2 import _smoothed
+from tpu_pathopt_torch.torchutil import EAGER, const, scalar
 
 _GRP = 3    # points per block: covers the 3rd-difference reach
 _NB = 9     # variables per block ([x, y, d] x 3)
@@ -54,8 +56,8 @@ def _xy_band(M: int, n_valid, config: PlannerConfig, dt):
     (3-point) and 3rd-difference (4-point) windows
     (tension_smoother.cpp:108-120), in the JAX package's order."""
     dev = n_valid.device
-    dds = torch.tensor([1.0, -2.0, 1.0], dtype=dt, device=dev)
-    ddds = torch.tensor([-1.0, 3.0, -3.0, 1.0], dtype=dt, device=dev)
+    dds = const([1.0, -2.0, 1.0], dtype=dt, device=dev)
+    ddds = const([-1.0, 3.0, -3.0, 1.0], dtype=dt, device=dev)
     blk2 = config.cartesian_curvature_weight * torch.outer(dds, dds)
     blk3 = config.cartesian_curvature_rate_weight * torch.outer(ddds, ddds)
     nv = n_valid[:, None]
@@ -160,8 +162,8 @@ def build_tension_qp(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
     xi, yi, di = 0, M, 2 * M
 
     P = torch.zeros((B, 3 * M, 3 * M), dtype=dt, device=dev)
-    dds = torch.tensor([1.0, -2.0, 1.0], dtype=dt, device=dev)
-    ddds = torch.tensor([-1.0, 3.0, -3.0, 1.0], dtype=dt, device=dev)
+    dds = const([1.0, -2.0, 1.0], dtype=dt, device=dev)
+    ddds = const([-1.0, 3.0, -3.0, 1.0], dtype=dt, device=dev)
     blk2 = config.cartesian_curvature_weight * torch.outer(dds, dds)
     blk3 = config.cartesian_curvature_rate_weight * torch.outer(ddds, ddds)
     w2 = (idx[:M - 2] <= nvl - 3).to(dt)     # windows of 3 valid points
@@ -203,7 +205,7 @@ def tension_smooth(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
     n_valid, converged)."""
     out = tension_smooth_batched(
         gm, x_in[None], y_in[None], angle_in[None],
-        torch.as_tensor(n_valid, device=x_in.device).reshape(1), config,
+        scalar(n_valid, device=x_in.device).reshape(1), config,
         settings)
     return tuple(a[0] for a in out)
 
@@ -211,19 +213,18 @@ def tension_smooth(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
 def tension_smooth_batched(gm: maps.GridMap, x_in, y_in, angle_in, n_valid,
                            config: PlannerConfig,
                            settings: admm.QPSettings = admm.QPSettings(),
-                           stats: dict | None = None):
+                           stats: dict | None = None, drv=EAGER):
     """Solve the batch of TENSION QPs (one shared map); returns (x, y, s,
     n_valid, converged) with s the rebuilt cumulative arc length.
     ``stats``, if given, receives the solver's round count under
-    ``"smooth_rounds"``."""
+    ``"smooth_rounds"``. ``drv`` runs the set-up, the rounds and the finish
+    as its segments (``torchutil.Segments``; eager by default)."""
     M = x_in.shape[1]
-    qp = build_tension_qp_blocks(gm, x_in, y_in, angle_in, n_valid, config)
-    sol = structured.solve_structured_batched(qp, settings=settings)
+    run = drv("smooth.setup", lambda *a: structured.structured_setup(
+        build_tension_qp_blocks(*a, config), settings=settings),
+        gm, x_in, y_in, angle_in, n_valid)
+    run, rounds = structured.solve_structured(drv, "smooth", run, settings)
     if stats is not None:
-        stats["smooth_rounds"] = sol.rounds
-    x, y = _unpack(sol.v, M)
-    seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
-    keep = torch.arange(M - 1, device=x.device) <= n_valid[:, None] - 2
-    seg = torch.where(keep, seg, 0.0)
-    s = torch.cat([torch.zeros_like(x[:, :1]), torch.cumsum(seg, -1)], -1)
-    return x, y, s, n_valid, sol.converged
+        stats["smooth_rounds"] = rounds
+    return drv("smooth.finish", lambda run, n: _smoothed(
+        *_unpack(run.v, M), n, run.conv), run, n_valid)

@@ -20,6 +20,7 @@ import torch
 
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.qp import admm, structured
+from tpu_pathopt_torch.torchutil import EAGER, scalar
 
 
 def build_tension2_qp(x_in, y_in, angle_in, k_in, s_in, n_valid,
@@ -104,7 +105,7 @@ def tension2_smooth(x_in, y_in, angle_in, k_in, s_in, n_valid,
     ``admm.solve_qp``; returns (x, y, s, n_valid, converged) with s the
     rebuilt cumulative arc length (tension_smoother_2.cpp:56-71)."""
     M = x_in.shape[0]
-    n_valid = torch.as_tensor(n_valid, device=x_in.device)
+    n_valid = scalar(n_valid, device=x_in.device)
     dense = build_tension2_qp(x_in[None], y_in[None], angle_in[None],
                               k_in[None], s_in[None], n_valid.reshape(1),
                               config)
@@ -177,23 +178,31 @@ def build_tension2_structured(x_in, y_in, angle_in, k_in, s_in, n_valid,
                                     a_cur=a_cur, a_prev=a_prev, lb=b, ub=b)
 
 
-def tension2_smooth_batched(x_in, y_in, angle_in, k_in, s_in, n_valid,
-                            config: PlannerConfig,
-                            settings: admm.QPSettings = admm.QPSettings(),
-                            stats: dict | None = None):
-    """Solve the batch of TENSION2 QPs; returns (x, y, s, n_valid,
-    converged) with s the rebuilt cumulative arc length. ``stats``, if
-    given, receives the solver's round count under ``"smooth_rounds"``."""
-    qp = build_tension2_structured(x_in, y_in, angle_in, k_in, s_in, n_valid,
-                                   config)
-    sol = structured.solve_structured_batched(qp, settings=settings)
-    if stats is not None:
-        stats["smooth_rounds"] = sol.rounds
-    x = sol.v[:, :, 0]
-    y = sol.v[:, :, 1]
-    M = x_in.shape[1]
+def _smoothed(x, y, n_valid, converged):
+    """(x, y, s, n_valid, converged) with s the rebuilt cumulative arc
+    length of the smoothed points (tension_smoother_2.cpp:56-71)."""
+    M = x.shape[1]
     seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
     keep = torch.arange(M - 1, device=x.device) <= n_valid[:, None] - 2
     seg = torch.where(keep, seg, 0.0)
     s = torch.cat([torch.zeros_like(x[:, :1]), torch.cumsum(seg, -1)], -1)
-    return x, y, s, n_valid, sol.converged
+    return x, y, s, n_valid, converged
+
+
+def tension2_smooth_batched(x_in, y_in, angle_in, k_in, s_in, n_valid,
+                            config: PlannerConfig,
+                            settings: admm.QPSettings = admm.QPSettings(),
+                            stats: dict | None = None, drv=EAGER):
+    """Solve the batch of TENSION2 QPs; returns (x, y, s, n_valid,
+    converged) with s the rebuilt cumulative arc length. ``stats``, if
+    given, receives the solver's round count under ``"smooth_rounds"``.
+    ``drv`` runs the set-up, the rounds and the finish as its segments
+    (``torchutil.Segments``; eager by default)."""
+    run = drv("smooth.setup", lambda *a: structured.structured_setup(
+        build_tension2_structured(*a, config), settings=settings),
+        x_in, y_in, angle_in, k_in, s_in, n_valid)
+    run, rounds = structured.solve_structured(drv, "smooth", run, settings)
+    if stats is not None:
+        stats["smooth_rounds"] = rounds
+    return drv("smooth.finish", lambda run, n: _smoothed(
+        run.v[:, :, 0], run.v[:, :, 1], n, run.conv), run, n_valid)

@@ -19,6 +19,7 @@ import torch
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.geometry import constrain_angle
 from tpu_pathopt_torch.qp.admm import INFTY
+from tpu_pathopt_torch.torchutil import const
 
 NB = 6  # variables per knot
 
@@ -75,7 +76,7 @@ def assemble_path_qp(ref_s, ref_k, ref_heading_last, input_l, input_e,
     n_valid = n_valid.long()
     knot_mask = idx < n_valid[:, None]
 
-    p_diag = torch.tensor(
+    p_diag = const(
         [config.weight_l, 0.0, config.weight_kappa, config.weight_dkappa,
          config.weight_slack, config.weight_slack],
         dtype=dt, device=dev).expand(B, N, NB)
@@ -95,7 +96,7 @@ def assemble_path_qp(ref_s, ref_k, ref_heading_last, input_l, input_e,
         torch.stack([z, z, z], dim=-1),
     ], dim=-2)                                             # (B, N-1, 3, 3)
     A = torch.eye(3, dtype=dt, device=dev) + ds[..., None, None] * df_x
-    B_ = ds[..., None] * torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
+    B_ = ds[..., None] * const([0.0, 0.0, 1.0], dtype=dt, device=dev)
     u_input = (input_k[:, 1:] - input_k[:, :-1]) / ds
     f = torch.stack([one_kl * tan_e, one_kl * kbar / cos_e - ref_k[:, :-1],
                      u_input], dim=-1)                     # (B, N-1, 3)
@@ -123,9 +124,9 @@ def assemble_path_qp(ref_s, ref_k, ref_heading_last, input_l, input_e,
     kappa_ub = torch.full((B, N), kl, dtype=dt, device=dev)
 
     # --- Collision rows (base_solver.cpp:193-206, 232-248) ---
-    coll = torch.tensor([[1.0, config.front_length, 0.0, 0.0, 1.0, 0.0],
-                         [1.0, config.rear_length, 0.0, 0.0, 0.0, 1.0]],
-                        dtype=dt, device=dev)
+    coll = const([[1.0, config.front_length, 0.0, 0.0, 1.0, 0.0],
+                  [1.0, config.rear_length, 0.0, 0.0, 0.0, 1.0]],
+                 dtype=dt, device=dev)
     coll_coef = coll.expand(B, N, 2, NB)
     f_lb, f_ub = soft_bounds(front_lb, front_ub, config.expected_safety_margin)
     r_lb, r_ub = soft_bounds(rear_lb, rear_ub, config.expected_safety_margin)
@@ -140,9 +141,9 @@ def assemble_path_qp(ref_s, ref_k, ref_heading_last, input_l, input_e,
             raise ValueError("rough_constraints_far_away needs center bounds "
                              "(update_bounds(..., with_center=True))")
         rough = (ref_s >= config.precise_planning_length) & knot_mask
-        rough_coef = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
-                                   [0.0, 0.0, 0.0, 0.0, 0.0, 1.0]],
-                                  dtype=dt, device=dev)
+        rough_coef = const([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                            [0.0, 0.0, 0.0, 0.0, 0.0, 1.0]],
+                           dtype=dt, device=dev)
         coll_coef = torch.where(rough[..., None, None], rough_coef, coll_coef)
         c_lb, c_ub = soft_bounds(center_lb, center_ub,
                                  config.expected_safety_margin)
@@ -244,7 +245,7 @@ def normal_blocks(qp: PathQP, rho_knot, rho_end, sigma):
     Returns (diag (B, N, 6, 6), off (B, N-1, 6, 6)) with off[i] = M[i+1, i]."""
     B, N = qp.p_diag.shape[:2]
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
-    tc = torch.as_tensor(T_CUR, dtype=dt, device=dev)
+    tc = const(T_CUR.tolist(), dtype=dt, device=dev)
     rho_t = rho_knot[..., :3]
     diag = torch.diag_embed(qp.p_diag + sigma)
     diag = diag + torch.einsum("ij,bni,ik->bnjk", tc, rho_t, tc)
@@ -271,7 +272,7 @@ def to_dense(qp: PathQP):
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
     i = torch.arange(N, device=dev)
     cur = qp.coll_coef.new_zeros((B, N, 6, NB))
-    cur[:, :, :3] = torch.as_tensor(T_CUR, dtype=dt, device=dev)
+    cur[:, :, :3] = const(T_CUR.tolist(), dtype=dt, device=dev)
     cur[:, :, 3, 2] = 1.0
     cur[:, :, 4:] = qp.coll_coef
     A4 = qp.coll_coef.new_zeros((B, N, N, 6, NB))

@@ -38,6 +38,7 @@ import torch
 from tpu_pathopt_torch import kernels
 from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.solver import assembly
+from tpu_pathopt_torch.torchutil import const, plain_read
 
 F32 = torch.float32
 
@@ -146,11 +147,13 @@ def fma(x, y, acc):
     p = x.double() * y.double()
     s = a + p
     tie = (s.view(torch.int64) & _LOW29) == _HALF29
-    if bool(tie.any()):
+    with plain_read():
+        any_tie = bool(tie.any())
+    if any_tie:
         pa = s - a
         e = (a - (s - pa)) + (p - pa)
         toward = torch.nextafter(s, torch.copysign(
-            torch.tensor(_INF64, dtype=s.dtype, device=s.device), e))
+            const(_INF64, dtype=s.dtype, device=s.device), e))
         s = torch.where(tie & (e != 0), toward, s)
     return s.float()
 
@@ -183,7 +186,7 @@ def factor_plain(diag, offp):
     the two agree to rounding on any block, positive definite or not
     (``btridiag.factor`` instead turns a block that is not into NaN)."""
     n, nb, _, B = diag.shape
-    floor = torch.tensor(PIVOT_FLOOR, dtype=diag.dtype, device=diag.device)
+    floor = const(PIVOT_FLOOR, dtype=diag.dtype, device=diag.device)
     cinv = torch.empty_like(diag)
     wp = torch.empty_like(diag)
     ci_prev = torch.zeros_like(diag[0])
@@ -248,6 +251,31 @@ def fused_factor(diag, offp):
 
 # --------------------------------- K2 ---------------------------------------
 
+def collision_rows_device(coll_coef):
+    """:func:`collision_rows` without its host read: the rows (N, 2, 2, B)
+    and a (2,) bool device tensor [the rows have K2's structure, they are
+    the same at every knot of every scenario], for the caller to read with
+    other flags and pass to :func:`check_rows_flags`. Only the shape is
+    checked here (it is known on the host)."""
+    if coll_coef.dim() != 4 or tuple(coll_coef.shape[2:]) != (2, 6):
+        raise ValueError(f"coll_coef: shape {tuple(coll_coef.shape)}, "
+                         "expected (B, N, 2, 6)")
+    rows = coll_coef[..., :2]
+    slack = torch.eye(2, dtype=coll_coef.dtype, device=coll_coef.device)
+    ok = (coll_coef[..., 2:4] == 0).all() & (coll_coef[..., 4:6]
+                                              == slack).all()
+    return lane(rows.to(F32)), torch.stack([ok, (rows == rows[:1, :1]).all()])
+
+
+def check_rows_flags(ok):
+    """Raise ValueError unless ``ok`` (the first flag of
+    :func:`collision_rows_device`, read to the host) holds."""
+    if not ok:
+        raise ValueError("coll_coef: K2 takes collision rows with zero kappa "
+                         "and u columns and the slack columns [[1, 0], "
+                         "[0, 1]]")
+
+
 def collision_rows(coll_coef):
     """The collision rows' coefficients K2 takes, from a path QP's
     ``coll_coef`` (B, N, 2, 6): those of l and e_psi in each row, lane-major
@@ -257,20 +285,13 @@ def collision_rows(coll_coef):
     far-away rows). K2's rows have no kappa or u term and one slack each,
     s_front in row 0 and s_rear in row 1, with coefficient 1; any other
     ``coll_coef`` raises ValueError, on any device, so no round iterates an
-    operator other than the one factored. One host read."""
-    if coll_coef.dim() != 4 or tuple(coll_coef.shape[2:]) != (2, 6):
-        raise ValueError(f"coll_coef: shape {tuple(coll_coef.shape)}, "
-                         "expected (B, N, 2, 6)")
-    rows = coll_coef[..., :2]
-    slack = torch.eye(2, dtype=coll_coef.dtype, device=coll_coef.device)
-    ok = (coll_coef[..., 2:4] == 0).all() & (coll_coef[..., 4:6]
-                                              == slack).all()
-    ok, uniform = torch.stack([ok, (rows == rows[:1, :1]).all()]).tolist()
-    if not ok:
-        raise ValueError("coll_coef: K2 takes collision rows with zero kappa "
-                         "and u columns and the slack columns [[1, 0], "
-                         "[0, 1]]")
-    return lane(rows.to(F32)), "nb=6" if uniform else "nb=6,rough"
+    operator other than the one factored. One host read. The path solver
+    takes :func:`collision_rows_device` and reads its flags with the first
+    round's."""
+    rows, flags = collision_rows_device(coll_coef)
+    ok, uniform = flags.tolist()
+    check_rows_flags(ok)
+    return rows, "nb=6" if uniform else "nb=6,rough"
 
 
 def coll_coef_from_rows(cc):

@@ -11,8 +11,9 @@ kernel K1 and every ``check_every``-iteration round through kernel K2, whose
 arrays are batch-last; the residuals come back from the kernel. Otherwise the
 plain PyTorch rounds run, their solve by parallel prefix where
 ``settings.pscan`` asks for it (it selects nothing for the kernels, as in the
-JAX package). The rounds are batch-global: each round's loop test and
-refactor gate are host reads.
+JAX package). The rounds are batch-global (``structured.run_rounds``):
+setup, round and refactor are separate functions over one in-place state,
+each round ending in one host read of its loop test and refactor gate.
 
 :func:`solve_path_qp` and :func:`trace_path_rounds` run the JAX package's
 scalar rounds (uninverted factors, a refactor every round) on a batch; the
@@ -22,14 +23,18 @@ CLI's ``--verbose-qp`` prints the trace.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from tpu_pathopt_torch import kernels
 from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.qp.admm import QPSettings
+from tpu_pathopt_torch.qp.structured import run_rounds
 from tpu_pathopt_torch.solver import assembly, fused_rounds
 from tpu_pathopt_torch.solver.assembly import PathQP
 from tpu_pathopt_torch.solver.fused_rounds import lane, unlane
+from tpu_pathopt_torch.torchutil import EAGER, scalar
 
 
 @dataclasses.dataclass
@@ -77,7 +82,7 @@ def _scalar_round_setup(qp: PathQP, v0, y0_knot, y0_end,
 
     rho_bar0 = (torch.full((B,), st.rho_bar, dtype=dt, device=dev)
                 if rho0 is None else
-                torch.as_tensor(rho0, dtype=dt, device=dev).expand(B).clone())
+                scalar(rho0, dt, dev).expand(B).clone())
     v = torch.zeros((B, N, assembly.NB), dtype=dt, device=dev) \
         if v0 is None else v0
     yk = torch.zeros((B, N, 6), dtype=dt, device=dev) \
@@ -166,112 +171,204 @@ def trace_path_rounds(qp: PathQP, settings: QPSettings = QPSettings(),
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
-def solve_path_qp_batched(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
-                          settings: QPSettings = QPSettings(),
-                          rho0=None) -> PathQPSolution:
-    """Solve a batch of path QPs on the device their tensors lie on."""
+@dataclasses.dataclass
+class PathRun:
+    """One batch of path-QP solves in flight: the QP and what the rounds
+    read of it (bounds, row classes, the kernel-layout copies), and the loop
+    state, which the rounds and refactors update in place. ``flags`` holds
+    the round's host-read values: [any element active, any element needs a
+    refactor, K2's collision rows have its structure, they are the same at
+    every knot] (the last two from the setup)."""
+    qp: PathQP
+    bounds: tuple            # (lb_knot, ub_knot, lb_end, ub_end)
+    cls: tuple               # (cls_knot, cls_end)
+    end_idx: torch.Tensor
+    lanes: tuple | None      # K2's batch-last operands
+    rk: torch.Tensor
+    re: torch.Tensor
+    Ci: torch.Tensor
+    W: torch.Tensor
+    state: tuple             # (v, zk, ze, yk, ye)
+    rho_bar: torch.Tensor
+    it: torch.Tensor
+    conv: torch.Tensor
+    pri: torch.Tensor
+    dua: torch.Tensor
+    need: torch.Tensor
+    flags: torch.Tensor
+
+
+def _factor(run_qp, cls, rho_bar, st: QPSettings):
+    cls_knot, cls_end = cls
+    rk = rho_bar[:, None, None] * cls_knot
+    re = rho_bar[:, None] * cls_end
+    diag, off = assembly.normal_blocks(run_qp, rk, re, st.sigma)
+    if st.fused_rounds:
+        offp = torch.cat([torch.zeros_like(diag[:, :1]), off], 1)
+        Ci, W = fused_rounds.fused_factor(lane(diag), lane(offp))
+        return lane(rk), lane(re), Ci, W
+    C, W = btridiag.factor(diag, off)
+    Cinv, W = btridiag.inv_factors(C, W)
+    return rk, re, Cinv, W
+
+
+def path_setup(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
+               settings: QPSettings = QPSettings(), rho0=None) -> PathRun:
+    """The factorization (K1 with ``settings.fused_rounds``) and the loop
+    state before the first round, in K2's batch-last layout with
+    ``fused_rounds``. Every state tensor is new (a given warm start is
+    copied), so the rounds may write into it. With ``fused_rounds`` the
+    collision rows' structure is checked on the device; the first round's
+    read raises on it (:func:`check_rows`)."""
     st = settings
     B, N = qp.p_diag.shape[:2]
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
-    fused = st.fused_rounds
-
-    lb_knot, ub_knot, lb_end, ub_end = assembly.bounds(qp)
-    cls_knot, cls_end = assembly.rho_classes(qp)
+    bnds = assembly.bounds(qp)
+    cls = assembly.rho_classes(qp)
     end_idx = assembly.end_knot(qp.end_idx, N)
-    ops = (qp.t_prev, qp.coll_coef, end_idx)
-
-    def factor(rho_bar):
-        rk = rho_bar[:, None, None] * cls_knot
-        re = rho_bar[:, None] * cls_end
-        diag, off = assembly.normal_blocks(qp, rk, re, st.sigma)
-        if fused:
-            offp = torch.cat([torch.zeros_like(diag[:, :1]), off], 1)
-            Ci, W = fused_rounds.fused_factor(lane(diag), lane(offp))
-            return lane(rk), lane(re), Ci, W
-        C, W = btridiag.factor(diag, off)
-        Cinv, W = btridiag.inv_factors(C, W)
-        return rk, re, Cinv, W
-
     rho_bar = (torch.full((B,), st.rho_bar, dtype=dt, device=dev)
                if rho0 is None else
-               torch.as_tensor(rho0, dtype=dt, device=dev).expand(B).clone())
-    rk, re, Ci, W = factor(rho_bar)
+               scalar(rho0, dt, dev).expand(B).clone())
+    rk, re, Ci, W = _factor(qp, cls, rho_bar, st)
     v = torch.zeros((B, N, assembly.NB), dtype=dt, device=dev) \
         if v0 is None else v0
     yk = torch.zeros((B, N, 6), dtype=dt, device=dev) \
         if y0_knot is None else y0_knot
     ye = torch.zeros((B, 2), dtype=dt, device=dev) \
         if y0_end is None else y0_end
-    zk, ze = assembly.a_mul_blocks(*ops, v)
+    zk, ze = assembly.a_mul_blocks(qp.t_prev, qp.coll_coef, end_idx, v)
     state = (v, zk, ze, yk, ye)
-    if fused:
+    lanes = None
+    rows_ok = torch.ones((2,), dtype=torch.bool, device=dev)
+    if st.fused_rounds:
         # Kernel layout for the whole solve: batch last.
-        cc_l, k2_key = fused_rounds.collision_rows(qp.coll_coef)
-        end_i32 = end_idx.to(torch.int32).contiguous()
-        tp_l = lane(qp.t_prev)
-        lbk_l, ubk_l = lane(lb_knot), lane(ub_knot)
-        lbe_l, ube_l = lane(lb_end), lane(ub_end)
-        pd_l = lane(qp.p_diag)
+        cc_l, rows_ok = fused_rounds.collision_rows_device(qp.coll_coef)
+        lanes = (cc_l, end_idx.to(torch.int32).contiguous(),
+                 lane(qp.t_prev)) + tuple(lane(a) for a in bnds) \
+            + (lane(qp.p_diag),)
         state = tuple(lane(a) for a in state)
-        sel = lambda m, a: m.reshape((1,) * (a.dim() - 1) + (B,))  # noqa: E731
+    # The rounds write into the state: never into a caller's warm start.
+    state = tuple(n.clone() if n.untyped_storage().data_ptr()
+                  == a.untyped_storage().data_ptr() else n
+                  for a, n in zip((v, zk, ze, yk, ye), state))
+    return PathRun(
+        qp=qp, bounds=bnds, cls=cls, end_idx=end_idx, lanes=lanes, rk=rk,
+        re=re, Ci=Ci, W=W, state=state, rho_bar=rho_bar,
+        it=torch.zeros((B,), dtype=torch.long, device=dev),
+        conv=torch.zeros((B,), dtype=torch.bool, device=dev),
+        pri=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        dua=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        need=torch.zeros((B,), dtype=torch.bool, device=dev),
+        flags=torch.cat([torch.ones((2,), dtype=torch.bool, device=dev),
+                         rows_ok]))
+
+
+def _sel(run: PathRun, mask, a):
+    """A (B,) mask shaped to select elements of ``a`` in the run's layout."""
+    B = mask.shape[0]
+    if run.lanes is not None:
+        return mask.reshape((1,) * (a.dim() - 1) + (B,))
+    return mask.reshape((B,) + (1,) * (a.dim() - 1))
+
+
+def path_round(run: PathRun, settings: QPSettings) -> PathRun:
+    """One round: ``check_every`` ADMM iterations (K2, whose residuals come
+    back from the kernel, or the plain steps), termination and the
+    adaptive-rho update; the refactor it asks for is :func:`path_refactor`."""
+    st = settings
+    conv = run.conv
+    if run.lanes is not None:
+        cc_l, end_i32, tp_l, lbk_l, ubk_l, lbe_l, ube_l, pd_l = run.lanes
+        *new, res = fused_rounds.fused_admm_round(
+            cc_l, run.Ci, run.W, tp_l, lbk_l, ubk_l, lbe_l, ube_l, run.rk,
+            run.re, end_i32, pd_l, *run.state, iters=st.check_every,
+            alpha=st.alpha, sigma=st.sigma, key=f"nb=6{ROWS_TAG}")
     else:
-        sel = lambda m, a: m.reshape((B,) + (1,) * (a.dim() - 1))  # noqa: E731
+        ops = (run.qp.t_prev, run.qp.coll_coef, run.end_idx)
         solve = (btridiag.solve_batched_pscan if st.pscan
                  else btridiag.solve_batched)
+        new = run.state
+        for _ in range(st.check_every):
+            new = fused_rounds.path_admm_step(
+                ops, run.Ci, run.W, *run.bounds, run.rk, run.re, new,
+                st.alpha, st.sigma, solve=solve)
+        # Residuals of the unfrozen iterate, as the kernel returns them;
+        # converged elements' values are discarded below.
+        res = fused_rounds.path_residuals(ops, run.qp.p_diag, *new)
+    state = tuple(torch.where(_sel(run, conv, a), a, n)
+                  for a, n in zip(run.state, new))
+    it = torch.where(conv, run.it, run.it + st.check_every)
 
-    it = torch.zeros((B,), dtype=torch.long, device=dev)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pri = torch.full((B,), torch.inf, dtype=dt, device=dev)
-    dua = torch.full((B,), torch.inf, dtype=dt, device=dev)
-    rounds = 0
+    pri_res, dua_res, n_az, n_pd = res[0], res[1], res[2], res[3]
+    eps_pri = st.eps_abs + st.eps_rel * n_az
+    eps_dua = st.eps_abs + st.eps_rel * n_pd
+    conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua))
 
-    while bool(torch.any(~conv & (it < st.max_iter))):
-        rounds += 1
-        if fused:
-            *new, res = fused_rounds.fused_admm_round(
-                cc_l, Ci, W, tp_l, lbk_l, ubk_l, lbe_l, ube_l, rk, re,
-                end_i32, pd_l, *state, iters=st.check_every, alpha=st.alpha,
-                sigma=st.sigma, key=k2_key)
-        else:
-            new = state
-            for _ in range(st.check_every):
-                new = fused_rounds.path_admm_step(
-                    ops, Ci, W, lb_knot, ub_knot, lb_end, ub_end, rk, re,
-                    new, st.alpha, st.sigma, solve=solve)
-            # Residuals of the unfrozen iterate, as the kernel returns them;
-            # converged elements' values are discarded below.
-            res = fused_rounds.path_residuals(ops, qp.p_diag, *new)
-        state = tuple(torch.where(sel(conv, a), a, n)
-                      for a, n in zip(state, new))
-        it = torch.where(conv, it, it + st.check_every)
+    rho_bar, need = run.rho_bar, torch.zeros_like(conv)
+    if st.adaptive_rho:
+        num = pri_res / torch.clamp(n_az, min=1e-12)
+        den = dua_res / torch.clamp(n_pd, min=1e-12)
+        ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
+        need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
+        rho_bar = torch.where(
+            need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
+    flags = torch.cat([torch.stack([
+        torch.any(~conv_new & (it < st.max_iter)), torch.any(need)]),
+        run.flags[2:]])
+    return dataclasses.replace(
+        run, state=state, it=it, conv=conv_new, rho_bar=rho_bar, need=need,
+        pri=torch.where(conv, run.pri, pri_res),
+        dua=torch.where(conv, run.dua, dua_res), flags=flags)
 
-        pri_res, dua_res, n_az, n_pd = res[0], res[1], res[2], res[3]
-        eps_pri = st.eps_abs + st.eps_rel * n_az
-        eps_dua = st.eps_abs + st.eps_rel * n_pd
-        conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua))
 
-        if st.adaptive_rho:
-            num = pri_res / torch.clamp(n_az, min=1e-12)
-            den = dua_res / torch.clamp(n_pd, min=1e-12)
-            ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
-            need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
-            rho_bar_new = torch.where(
-                need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
-            if bool(torch.any(need)):
-                rk_n, re_n, Ci_n, W_n = factor(rho_bar_new)
-                rk = torch.where(sel(need, rk), rk_n, rk)
-                re = torch.where(sel(need, re), re_n, re)
-                Ci = torch.where(sel(need, Ci), Ci_n, Ci)
-                W = torch.where(sel(need, W), W_n, W)
-            rho_bar = rho_bar_new
+def path_refactor(run: PathRun, settings: QPSettings) -> PathRun:
+    """Refactor at the adapted rho (K1) and keep the new factors on the
+    elements that asked for them."""
+    need = run.need
+    rk_n, re_n, Ci_n, W_n = _factor(run.qp, run.cls, run.rho_bar, settings)
+    return dataclasses.replace(
+        run, rk=torch.where(_sel(run, need, run.rk), rk_n, run.rk),
+        re=torch.where(_sel(run, need, run.re), re_n, run.re),
+        Ci=torch.where(_sel(run, need, run.Ci), Ci_n, run.Ci),
+        W=torch.where(_sel(run, need, run.W), W_n, run.W))
 
-        pri = torch.where(conv, pri, pri_res)
-        dua = torch.where(conv, dua, dua_res)
-        conv = conv_new
 
-    if fused:
+# The part of K2's launch key that the first round's read decides: its
+# collision rows are the same at every knot ("nb=6") or not ("nb=6,rough").
+ROWS_TAG = "{rows}"
+
+
+def check_rows(flags):
+    """After a round's read: raise where the setup found collision rows K2
+    does not take, and fill K2's launch key with what the rows are."""
+    fused_rounds.check_rows_flags(flags[2])
+    kernels.fill_key(ROWS_TAG, "" if flags[3] else ",rough")
+
+
+def path_solution(run: PathRun, rounds: int) -> PathQPSolution:
+    state = run.state
+    if run.lanes is not None:
         state = tuple(unlane(a) for a in state)
     v, _, _, yk, ye = state
-    return PathQPSolution(v=v, y_knot=yk, y_end=ye, iters=it, converged=conv,
-                          pri_res=pri, dua_res=dua, rho_bar=rho_bar,
+    return PathQPSolution(v=v, y_knot=yk, y_end=ye, iters=run.it,
+                          converged=run.conv, pri_res=run.pri,
+                          dua_res=run.dua, rho_bar=run.rho_bar,
                           rounds=rounds)
+
+
+def solve_path(drv, name: str, run: PathRun, settings: QPSettings
+               ) -> tuple[PathRun, int]:
+    """The rounds of a set-up solve through the segment runner ``drv``."""
+    return run_rounds(
+        drv, name, run, functools.partial(path_round, settings=settings),
+        functools.partial(path_refactor, settings=settings),
+        settings.max_iter, on_read=check_rows)
+
+
+def solve_path_qp_batched(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
+                          settings: QPSettings = QPSettings(),
+                          rho0=None) -> PathQPSolution:
+    """Solve a batch of path QPs on the device their tensors lie on."""
+    run = path_setup(qp, v0, y0_knot, y0_end, settings, rho0)
+    run, rounds = solve_path(EAGER, "qp", run, settings)
+    return path_solution(run, rounds)

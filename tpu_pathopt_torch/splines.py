@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from tpu_pathopt_torch.torchutil import take
+from tpu_pathopt_torch.torchutil import scalar, take
 
 
 @dataclasses.dataclass
@@ -104,7 +104,7 @@ def fit_xy(s, x, y, n_valid):
 def _flat_queries(sp: CubicSpline, q):
     """(rows, q2, shape): spline batch flattened to rows, queries to
     (rows, M), and the query shape to restore."""
-    q = torch.as_tensor(q, dtype=sp.s.dtype, device=sp.s.device)
+    q = scalar(q, sp.s.dtype, sp.s.device)
     bshape = sp.s.shape[:-1]
     q = q.expand(bshape + q.shape[len(bshape):]) if q.dim() >= len(bshape) \
         else q.expand(bshape)
@@ -307,13 +307,11 @@ def project_directional(xs: CubicSpline, ys: CubicSpline, tx, ty, angle,
     reference's scan never updates its minimum (tools.cpp:147); as in the
     JAX package the minimum is tracked here. tx, ty, angle, max_s and
     start_s share the spline's batch shape and any query shape after it."""
-    tx, ty, angle, max_s = (torch.as_tensor(a, dtype=torch.float32,
-                                            device=xs.s.device)
+    tx, ty, angle, max_s = (scalar(a, torch.float32, xs.s.device)
                             for a in (tx, ty, angle, max_s))
     offs = grid * torch.arange(max_grid_points, dtype=torch.float32,
                                device=xs.s.device)
-    cand = torch.as_tensor(start_s, dtype=torch.float32,
-                           device=xs.s.device)[..., None] + offs
+    cand = scalar(start_s, torch.float32, xs.s.device)[..., None] + offs
     cand = cand.expand(max_s.shape + (max_grid_points,))
     valid = cand <= max_s[..., None]
     cand = torch.minimum(torch.clamp(cand, min=0.0), max_s[..., None])
