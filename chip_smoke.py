@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``tpu_pathopt_torch/csrc`` (nvcc for
-sm_90a, into ``tpu_pathopt_torch/_build``), then:
+It builds the four CUDA kernels and the conditional graph nodes of the
+compiled calls (``graph_cond.cu``) from ``tpu_pathopt_torch/csrc`` (nvcc
+for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA
-   versions) and the build (nvcc commands, seconds, registers and spills);
+   versions) and the build (nvcc commands and version, seconds, registers
+   and spills, the CUDA runtime's and driver's versions);
 2. ``kernel``: runs ``pipeline.solve_batch`` on the 256-scenario
    adversarial batch at the default config, under TENSION (K1 at nb 9,
    K3 at (9, 9)) and under the rough far-away rows (K2 under the key
@@ -82,17 +84,26 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
    truncated at its last knot, as in the JAX package), and its launch
    keys shown (K2 at 512, 300 and 1024 knots in clusters);
 6b. ``compiled``: the compiled entry points (``pipeline.solve_batch_jit``,
-   the compiled ``replan.replan_step``; CUDA graphs captured on the first
-   call of a key, replayed after) on the adversarial batch at the default
-   config and under every variant, 3 replanning cycles, and every
+   the compiled ``replan.replan_step``; the whole call captured on the
+   first call of a key into one CUDA graph, each QP solve's rounds a WHILE
+   node and each refactor an IF node in it, replayed after) on the
+   adversarial batch at the default config and under every variant, two
+   input sets of one key with different round counts (the batch, its easy
+   lanes repeated to the same size, the batch again), 3 replanning
+   cycles, a compiled ``replan_stream`` of 6 cycles (no host read while
+   its cycles are issued; timed against 6 single steps), and every
    ``LONG_RUNS`` run but the plain rounds: the first call (capture
    included) and ``REPEATS`` replays, the first of them counted; every
    field of every result equal bit for bit to the eager result of the
    same call from the phases above (``bit_unequal``), ok_fraction 1.0,
    every path finite and collision free, K1-K3 (and K4 on the DP
-   corridor) launched on replay; it prints the capture seconds, the
-   replay ms (median), solves/s, the graph pool's bytes and the launches
-   by kernel and shape on replay;
+   corridor) launched on replay; one graph per key with a WHILE and an IF
+   node for each QP solve, no host read inside a call (``HostReads``),
+   the rounds and the launches by key the device counted equal to the
+   eager call's; it prints the capture seconds, the replay ms (median),
+   solves/s, the graph pool's bytes, the conditional nodes and the
+   launches by kernel and shape on replay. It raises first unless the
+   CUDA runtime and driver have conditional nodes (12.4);
 7. ``oracle``: each QP family of the main path (TENSION2, post, pass 2 of
    the path QP) and the TENSION QP, rebuilt through the port's own stage
    functions on the batch and solved as the pipeline solves them (K3, K2),
@@ -108,7 +119,8 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 8. ``dist``: a one-rank NCCL group on 127.0.0.1: ``dist.solve_sharded``
    on the batch (through the cached compiled solver; the second call
    counted; every field equal bit for bit to ``solve_batch``'s, printed as
-   a ``compiled`` line, FleetStats equal to the result's counts),
+   a ``compiled`` line with the graph checks of 6b, FleetStats equal to
+   the result's counts),
    ``dist.solve_streamed`` over 4 batches of 64, and
    ``replan.replan_stream_sharded`` against ``replan.replan_stream`` over
    3 cycles;
@@ -126,7 +138,12 @@ sm_90a, into ``tpu_pathopt_torch/_build``), then:
 route once each under ``torch.profiler``, eager and compiled (a replay),
 and prints device time by kernel, the number of kernels launched, the
 device's busy share, and the launches and device time of each of the
-port's kernels at each of its shapes.
+port's kernels at each of its shapes; for the compiled calls also where
+the idle time goes, timed without the profiler: outside any graph (the
+call's wall time less the device span of its graph replays, CUDA events
+around each, ``graph_split``) and between the kernels inside the graphs
+(the spans of the calls just before and after the profiled one, where
+they agree, less its busy time, where the trace holds every launch).
 
 Every line before the last is a JSON object or the raw ``nvidia-smi`` line;
 each phase's objects carry ``t_s``, the seconds since the script started.
@@ -152,6 +169,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_pathopt_torch import (cli, collision, corridor, dist, golden,
                                kernels, maps, pipeline, profiling, replan,
@@ -1016,7 +1034,8 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
     """solve_batch under each of VARIANTS on the batch: the first run
     counted (launch counters set to 0 just before, read just after), then
     REPEATS - 1 more; stage times and solves/s are medians over all. Each
-    variant's result is kept in ``results`` (for the compiled phase)."""
+    variant's result, rounds and launches by key are kept in ``results``
+    (for the compiled phase)."""
     out = {}
     for name, kw in VARIANTS.items():
         vcfg = dataclasses.replace(cfg, **kw)
@@ -1026,7 +1045,7 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
         by_shape = dict(kernels.shape_launches)
         check_outputs(res, vcfg)
         if results is not None:
-            results[name] = res
+            results[name] = (res, stats, by_shape)
         walls, stages = [wall], [stage_ms]
         for _ in range(REPEATS - 1):
             _, w, s, _ = timed_solve(gm, scs, vcfg, device)
@@ -1070,6 +1089,7 @@ def drive_replan(gm, scs, cfg, device="cuda") -> dict:
         streams[mode] = dataclasses.asdict(replan.replan_stream(
             gm, scs, cfg, n_steps=REPLAN_CYCLES, advance_ds=1.0,
             use_warm=use_warm, device=device))
+        kernels.sync_counts()
         launches[mode] = dict(kernels.launches)
     rec = profiling.TimeRecorder("one solve")
     pipeline.solve_batch_profiled(gm, scs, cfg, recorder=rec, device=device)
@@ -1093,14 +1113,15 @@ def drive_replan(gm, scs, cfg, device="cuda") -> dict:
 def drive_main_path(gm, scs, cfg, device="cuda",
                     results=None) -> tuple[dict, dict]:
     """One counted, timed solve_batch on the card; returns (report,
-    launches). The result is kept in ``results["main"]``."""
+    launches). The result, rounds and launches by key are kept in
+    ``results["main"]``."""
     kernels.reset_launches()
     res, wall, stage_ms, stats = timed_solve(gm, scs, cfg, device)
     launches = dict(kernels.launches)
     by_shape = dict(kernels.shape_launches)
     check_outputs(res, cfg)
     if results is not None:
-        results["main"] = res
+        results["main"] = (res, stats, by_shape)
     ok_fraction = float(res.ok.float().mean())
     # Two more timed runs, after the counters were read, for the spread.
     walls = [wall]
@@ -1246,8 +1267,8 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda",
     valid knots and every succeeded path collision free; each long-route
     run must meet its LONG_RUNS horizon and launch its LONG_RUNS keys; the
     fine lattice must launch K4 at 135 laterals. First the geometry stage
-    on the card's captured inputs (check_card_geometry). Each run's result
-    is kept in ``results``."""
+    on the card's captured inputs (check_card_geometry). Each run's result,
+    rounds and launches by key are kept in ``results``."""
     runs = [(name, gm, scs, kw, PlannerConfig(**kw), plain, reps, need,
              horizon)
             for name, kw, plain, reps, need, horizon in LONG_RUNS]
@@ -1263,7 +1284,7 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda",
         by_shape = dict(kernels.shape_launches)
         check_outputs(res, c)
         if results is not None:
-            results[name] = res
+            results[name] = (res, stats, by_shape)
         walls, stages = [wall], [stage_ms]
         for _ in range(reps - 1):
             _, w, st, _ = timed_solve(g, sc, c, device, settings)
@@ -1369,13 +1390,82 @@ def pool_bytes(segs) -> int | None:
                if tuple(s["segment_pool_id"]) == pid)
 
 
+class HostReads(TorchDispatchMode):
+    """Counts the host reads the operations it sees make: a scalar read
+    (``item``, ``bool``, ``int``), a copy from the device to the host, a
+    comparison or a selection whose answer the host needs."""
+
+    READS = {torch.ops.aten._local_scalar_dense.default,
+             torch.ops.aten.equal.default, torch.ops.aten.nonzero.default,
+             torch.ops.aten.masked_select.default}
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func in self.READS:
+            self.n += 1
+        elif func in (torch.ops.aten._to_copy.default,
+                      torch.ops.aten.copy_.default):
+            src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+            dst = out
+            if (isinstance(src, torch.Tensor) and src.is_cuda
+                    and isinstance(dst, torch.Tensor) and not dst.is_cuda):
+                self.n += 1
+        return out
+
+
+def host_reads(fn) -> tuple:
+    """(fn(), the host reads it made)."""
+    with HostReads() as mode:
+        out = fn()
+    return out, mode.n
+
+
+def graph_report(segs) -> dict:
+    """A key's graph: how many (one per key), its conditional nodes (a
+    WHILE and an IF for each QP solve), capture seconds and pool bytes."""
+    return dict(capture=segs.capture, graphs=int(segs.graph is not None),
+                conditional_nodes=segs.conditional_nodes,
+                qp_loops=len(segs.loops), capture_s=segs.capture_seconds,
+                pool_bytes=pool_bytes(segs) if segs.capture else None)
+
+
+def graph_faults(name, graph, host_reads_per_call, rounds, want_rounds,
+                 by_shape, want_shape) -> list:
+    """The device-loop checks of a compiled run: one graph with a WHILE
+    and an IF node for each QP loop and no host read inside the call (on
+    the card; on the CPU a read a round stands in for the nodes), the
+    device's round counts and the launches by key equal the eager call's."""
+    bad = []
+    if graph["capture"] and (
+            graph["graphs"] != 1 or not graph["qp_loops"]
+            or graph["conditional_nodes"] != 2 * graph["qp_loops"]):
+        bad.append(f"graph {graph}")
+    if graph["capture"] and host_reads_per_call:
+        bad.append(f"{host_reads_per_call} host reads inside the call")
+    if rounds != want_rounds:
+        bad.append(f"rounds {rounds} != eager {want_rounds}")
+    if by_shape != want_shape:
+        bad.append(f"launches {by_shape} != eager {want_shape}")
+    return [f"compiled {name}: {b}" for b in bad]
+
+
 def compiled_run(name, gm, scs, cfg, want, device="cuda") -> dict:
-    """solve_batch_jit on one configuration: the first call (capture
-    included), then REPEATS replays, the first of them counted (launch
-    counters set to 0 just before, read just after). Every field of both
-    results must equal ``want`` (solve_batch's on the same inputs) bit for
-    bit, ok_fraction must be 1.0 and every succeeded path finite and
-    collision free."""
+    """solve_batch_jit on one configuration: the first call (warm-up and
+    capture of the key's one graph, then its replay), then REPEATS
+    replays, the first of them counted (launch counters set to 0 just
+    before; the device's launch and round counts read just after, outside
+    the timed call), and one more call under :class:`HostReads`. ``want``
+    is solve_batch's (result, rounds, launches by key) on the same
+    inputs: every field of both results must equal it bit for bit, and
+    the rounds and launches by key the device counted must equal its;
+    ok_fraction must be 1.0, every succeeded path finite and collision
+    free, and no host read made inside the call."""
+    want, want_rounds, want_shape = want
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first = pipeline.solve_batch_jit(gm, scs, cfg, device=device)
@@ -1391,18 +1481,22 @@ def compiled_run(name, gm, scs, cfg, want, device="cuda") -> dict:
         torch.cuda.synchronize()
         replay.append(1e3 * (time.perf_counter() - t0))
         if i == 0:
+            rounds = {f"{k}_rounds": v for k, v in segs.sync().items()}
             launches = dict(kernels.launches)
             by_shape = dict(kernels.shape_launches)
+    _, reads = host_reads(lambda: pipeline.solve_batch_jit(
+        gm, scs, cfg, device=device))
     check_outputs(res, cfg)
     ms = statistics.median(replay)
+    graph = graph_report(segs)
     report = dict(
         phase="compiled", run=name, batch=len(res.ok), n_knots=cfg.n_knots,
-        capture_s=segs.capture_seconds, first_call_s=first_s,
-        graphs=len(segs.segments), replay_ms_runs=replay, replay_ms=ms,
+        first_call_s=first_s, replay_ms_runs=replay, replay_ms=ms,
         solves_per_s=len(res.ok) / ms * 1e3,
-        ok_fraction=float(res.ok.float().mean()),
-        pool_bytes=pool_bytes(segs), launches=launches,
-        shape_launches=by_shape,
+        ok_fraction=float(res.ok.float().mean()), **graph,
+        host_reads_per_call=reads, rounds=rounds, eager_rounds=want_rounds,
+        launches=launches, shape_launches=by_shape,
+        launches_equal_eager=by_shape == want_shape,
         unequal_first=bit_unequal(first, want),
         unequal_replay=bit_unequal(res, want),
         collision=collision_report(gm, res, cfg, device),
@@ -1424,21 +1518,37 @@ def compiled_run(name, gm, scs, cfg, want, device="cuda") -> dict:
         idle.append("dp_forward")
     if idle:
         raise AssertionError(f"compiled {name}: no {idle} on replay")
+    bad = graph_faults(name, graph, reads, rounds, want_rounds, by_shape,
+                       want_shape)
+    if bad:
+        raise AssertionError("; ".join(bad))
     return report
+
+
+def eager_record(gm, scs, cfg, device="cuda", **kw):
+    """solve_batch (``kw``: the warm start) as (result, rounds, launches
+    by key); counted, the counters reset before."""
+    stats = {}
+    kernels.reset_launches()
+    out = pipeline._solve_batch_impl(gm, scs, cfg, None, device, stats=stats,
+                                     **kw)
+    return out, stats, dict(kernels.shape_launches)
 
 
 def compiled_replan(gm, scs, cfg, device="cuda") -> dict:
     """REPLAN_COMPILED_CYCLES cycles of the compiled replan_step (the
-    first captures, the others replay) against replan_step_eager, each
+    first captures, the others replay) against the eager cycle, each
     cycle's result, warm state and advanced poses bit for bit; the last
-    cycle counted."""
+    cycle counted, its device round and launch counts against the eager
+    cycle's, and one more cycle on its inputs under :class:`HostReads`."""
     B = len(scs.n_raw)
     warm_e = warm_c = pipeline.QPWarmStart.cold(B, cfg, device)
     scs_e = scs_c = scs
     unequal, cycle_ms = [], []
     for c in range(REPLAN_COMPILED_CYCLES):
-        want = replan.replan_step_eager(gm, scs_e, warm_e, cfg, None, 1.0,
-                                        device=device)
+        (res_e, warm_o), want_rounds, want_shape = eager_record(
+            gm, scs_e, cfg, device, warm=warm_e, return_warm=True)
+        want = (res_e, warm_o, replan.advance_scenarios(scs_e, res_e, 1.0))
         last = c == REPLAN_COMPILED_CYCLES - 1
         if last:
             kernels.reset_launches()
@@ -1448,20 +1558,27 @@ def compiled_replan(gm, scs, cfg, device="cuda") -> dict:
                                  device=device)
         torch.cuda.synchronize()
         cycle_ms.append(1e3 * (time.perf_counter() - t0))
+        segs = last_segments()
         if last:
+            rounds = {f"{k}_rounds": v for k, v in segs.sync().items()}
             launches = dict(kernels.launches)
+            by_shape = dict(kernels.shape_launches)
+            _, reads = host_reads(lambda: replan.replan_step(
+                gm, scs_c, warm_c, cfg, None, 1.0, device=device))
         unequal += [f"c{c}.{k}" for k in bit_unequal(got, want)]
         _, warm_e, scs_e = want
         _, warm_c, scs_c = got
     res = got[0]
-    segs = last_segments()
+    graph = graph_report(segs)
     report = dict(phase="compiled", run="replan", batch=B,
                   cycles=REPLAN_COMPILED_CYCLES, cycle_ms=cycle_ms,
-                  capture_s=segs.capture_seconds, graphs=len(segs.segments),
                   replay_ms=statistics.median(cycle_ms[1:]),
                   solves_per_s=B / statistics.median(cycle_ms[1:]) * 1e3,
-                  ok_fraction=float(res.ok.float().mean()),
-                  pool_bytes=pool_bytes(segs), launches=launches,
+                  ok_fraction=float(res.ok.float().mean()), **graph,
+                  host_reads_per_call=reads, rounds=rounds,
+                  eager_rounds=want_rounds, launches=launches,
+                  shape_launches=by_shape,
+                  launches_equal_eager=by_shape == want_shape,
                   unequal=unequal, nvidia_smi=card_line())
     emit(report)
     if unequal:
@@ -1470,6 +1587,84 @@ def compiled_replan(gm, scs, cfg, device="cuda") -> dict:
         raise AssertionError(f"compiled replan: ok_fraction "
                              f"{report['ok_fraction']}")
     check_outputs(res, cfg)
+    bad = graph_faults("replan", graph, reads, rounds, want_rounds, by_shape,
+                       want_shape)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return report
+
+
+def compiled_two_inputs(gm, scs, cfg, device="cuda") -> dict:
+    """Two input sets of one key, whose solves take different rounds: the
+    adversarial batch and its easy lanes repeated to the same size, then
+    the adversarial batch again, each through the one graph of the key and
+    each bit for bit its own eager result, with its own eager rounds."""
+    per = len(scs.n_raw) // len(scenarios.LANES)
+    easy = tree_map(lambda a: a[:per].repeat(
+        (len(scenarios.LANES),) + (1,) * (a.dim() - 1)), scs)
+    runs, keys = [], set()
+    for name, batch in (("adversarial", scs), ("easy", easy),
+                        ("adversarial", scs)):
+        want, want_rounds, want_shape = eager_record(gm, batch, cfg, device)
+        kernels.reset_launches()
+        got = pipeline.solve_batch_jit(gm, batch, cfg, device=device)
+        segs = last_segments()
+        keys.add(id(segs))
+        rounds = {f"{k}_rounds": v for k, v in segs.sync().items()}
+        runs.append(dict(batch=name, rounds=rounds, eager_rounds=want_rounds,
+                         launches_equal_eager=dict(kernels.shape_launches)
+                         == want_shape,
+                         unequal=bit_unequal(got, want),
+                         ok_fraction=float(got.ok.float().mean())))
+    report = dict(phase="compiled", run="two_inputs", keys=len(keys),
+                  **graph_report(segs), runs=runs, nvidia_smi=card_line())
+    emit(report)
+    bad = [r for r in runs if r["unequal"] or r["rounds"] != r["eager_rounds"]
+           or not r["launches_equal_eager"] or r["ok_fraction"] != 1.0]
+    if bad or len(keys) != 1 or runs[0]["rounds"] == runs[1]["rounds"]:
+        raise AssertionError(f"compiled two_inputs: {runs}")
+    return report
+
+
+def compiled_stream(gm, scs, cfg, device="cuda") -> dict:
+    """replan_stream (each cycle the compiled replan_step) over
+    REPLAN_CYCLES cycles after a warm-up stream, timed against
+    REPLAN_CYCLES single compiled replan_steps, each waited for; then once
+    more under :class:`HostReads`: no host read while its cycles are
+    issued (each ``consume`` call, made after the next cycle is issued,
+    sees the count), its reads only at the end."""
+    replan.replan_stream(gm, scs, cfg, n_steps=REPLAN_CYCLES, device=device)
+    stats = replan.replan_stream(gm, scs, cfg, n_steps=REPLAN_CYCLES,
+                                 device=device)
+    seen = []
+    mode = HostReads()
+    with mode:
+        replan.replan_stream(gm, scs, cfg, n_steps=REPLAN_CYCLES,
+                             device=device,
+                             consume=lambda r: seen.append(mode.n))
+    reads_at_end = mode.n
+    B = len(scs.n_raw)
+    warm = pipeline.QPWarmStart.cold(B, cfg, device)
+    sc = scs
+    single_ms = []
+    for _ in range(REPLAN_CYCLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, warm, sc = replan.replan_step(gm, sc, warm, cfg, None, 1.0,
+                                         device=device)
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+    report = dict(phase="compiled", run="replan_stream", batch=B,
+                  cycles=REPLAN_CYCLES, stream_ms=1e3 * stats.seconds,
+                  stream_ms_per_cycle=1e3 * stats.seconds / REPLAN_CYCLES,
+                  single_ms=single_ms, single_ms_sum=sum(single_ms),
+                  host_reads_while_issuing=seen, host_reads_total=reads_at_end,
+                  n_ok=stats.n_ok, n_total=stats.n_total,
+                  nvidia_smi=card_line())
+    emit(report)
+    # On the CPU each QP round reads its flags (no graph to hold the loop).
+    if (device == "cuda" and any(seen)) or stats.n_ok != stats.n_total:
+        raise AssertionError(f"compiled replan_stream: {report}")
     return report
 
 
@@ -1477,15 +1672,20 @@ def drive_compiled(gm, scs, cfg, gm_long, scs_long, eager: dict,
                    device="cuda") -> dict:
     """The compiled entry points on the card (``pipeline.solve_batch_jit``,
     the compiled ``replan.replan_step``): the adversarial batch at the
-    default config and under every variant, the replanning cycles, and
-    every long-route run of LONG_RUNS but the plain rounds, each held bit
-    for bit to the eager result of the same call (``eager``, from the
-    earlier phases). The sharded path is held in ``drive_dist``."""
+    default config and under every variant, two input sets of one key, the
+    replanning cycles and stream, and every long-route run of LONG_RUNS but
+    the plain rounds, each held bit for bit to the eager result of the same
+    call (``eager``, from the earlier phases: result, rounds and launches
+    by key). The sharded path is held in ``drive_dist``. Raises first
+    unless the CUDA runtime and driver have conditional graph nodes."""
+    kernels.require_conditional_nodes()
     out = {"main": compiled_run("main", gm, scs, cfg, eager["main"], device)}
     for name, kw in VARIANTS.items():
         out[name] = compiled_run(name, gm, scs, dataclasses.replace(
             cfg, **kw), eager[name], device)
+    out["two_inputs"] = compiled_two_inputs(gm, scs, cfg, device)
     out["replan"] = compiled_replan(gm, scs, cfg, device)
+    out["replan_stream"] = compiled_stream(gm, scs, cfg, device)
     for name, kw, plain, _, _, _ in LONG_RUNS:
         if plain:
             continue
@@ -1923,14 +2123,18 @@ def drive_dist(gm, scs, cfg, device="cuda") -> dict:
                               process_id=0, device=device)
     try:
         mesh = dist.make_mesh(device)
-        want = pipeline.solve_batch(gm, scs, cfg, device=device)
-        # The first call captures the cached compiled solver's graphs; the
-        # counted call replays them.
+        want, want_rounds, want_shape = eager_record(gm, scs, cfg, device)
+        # The first call captures the cached compiled solver's graph (or
+        # finds it captured); the counted call replays it.
         first, _ = dist.solve_sharded(gm, scs, cfg, mesh)
         kernels.reset_launches()
         res, st = dist.solve_sharded(gm, scs, cfg, mesh)
+        segs = last_segments()
+        rounds = {f"{k}_rounds": v for k, v in segs.sync().items()}
         launches = dict(kernels.launches)
         by_shape = dict(kernels.shape_launches)
+        _, reads = host_reads(lambda: dist.solve_sharded(gm, scs, cfg, mesh))
+        graph = graph_report(segs)
         bits = bit_unequal(first, want) + bit_unequal(res, want)
         cache = dist._sharded_solver_cached.cache_info()._asdict()
         B = len(want.ok)
@@ -1973,7 +2177,14 @@ def drive_dist(gm, scs, cfg, device="cuda") -> dict:
                       "solves_per_s",)})
     emit(report)
     emit(dict(phase="compiled", run="dist", batch=B, unequal=bits,
-              solver_cache=cache, launches=launches))
+              solver_cache=cache, **graph, host_reads_per_call=reads,
+              rounds=rounds, eager_rounds=want_rounds, launches=launches,
+              shape_launches=by_shape,
+              launches_equal_eager=by_shape == want_shape))
+    bad = graph_faults("dist", graph, reads, rounds, want_rounds, by_shape,
+                       want_shape)
+    if bad:
+        raise AssertionError("; ".join(bad))
     if unequal or bits:
         raise AssertionError(f"dist: solve_sharded differs from solve_batch "
                              f"in {unequal}, bits of {bits}")
@@ -2008,6 +2219,7 @@ def drive_cli(extra=(), batch: int = BATCH) -> dict:
         with contextlib.redirect_stdout(buf):
             cli.main(argv)
         secs = time.perf_counter() - t0
+    kernels.sync_counts()
     launches = dict(kernels.launches)
     text = buf.getvalue()
     lines = text.splitlines()
@@ -2087,16 +2299,98 @@ def drive_pscan(gm, scs, cfg, device="cuda") -> dict:
     return report
 
 
+SPLIT_REPS = 10     # calls of the idle split, each timed and span-timed
+
+
+class GraphSpans:
+    """Records a CUDA event pair around every ``CUDAGraph.replay`` made
+    inside the block, on the stream it replays on: the device span of each
+    graph, from the moment the stream reaches it to its last node, gaps
+    between its kernels included."""
+
+    def __enter__(self):
+        self.pairs = []
+        self._replay = replay = torch.cuda.CUDAGraph.replay
+
+        def timed(graph):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            replay(graph)
+            b.record()
+            self.pairs.append((a, b))
+        torch.cuda.CUDAGraph.replay = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._replay
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def spanned_call(solve, gm, scs, cfg) -> tuple:
+    """One call of ``solve``: its wall time on the host clock (the device
+    waited for), the summed device spans of its graph replays
+    (:class:`GraphSpans`), both in ms, and the number of replays."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with GraphSpans() as gs:
+        solve(gm, scs, cfg, device="cuda")
+    span = gs.ms()
+    return 1e3 * (time.perf_counter() - t0), span, len(gs.pairs)
+
+
+def graph_split(solve, gm, scs, cfg, reps: int = SPLIT_REPS) -> dict:
+    """Where a replayed compiled call's wall time goes, without a
+    profiler (whose tracing lengthens every gap): ``reps`` calls, each
+    with its wall time and the device span of every graph replay in it
+    (:func:`spanned_call`). Outside any graph = a call's wall time less
+    its spans, taken call by call (the card's speed can change between
+    calls): host reads, graph launches, input copies, result clones.
+    Inside the graphs = the spans: the kernels and the gaps between them
+    (split by :func:`profile_main_path`'s busy time)."""
+    walls, spans, outside, launches = [], [], [], 0
+    for _ in range(reps):
+        wall, span, launches = spanned_call(solve, gm, scs, cfg)
+        walls.append(wall)
+        spans.append(span)
+        outside.append(wall - span)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    return dict(call_ms=statistics.median(walls), call_ms_runs=walls,
+                graph_span_ms=statistics.median(spans),
+                graph_span_ms_runs=spans, graph_launches=launches,
+                outside_graph_ms=statistics.median(outside),
+                outside_graph_ms_runs=outside, sm_clocks=clocks.strip())
+
+
+SPAN_LEVEL = 0.02   # spans before and after a profiled call must agree
+
+
 def profile_main_path(gm, scs, cfg, wall_unprofiled: float,
-                      route: str = "adversarial", solve=None):
+                      route: str = "adversarial", solve=None, extra=None):
     """One solve_batch (or ``solve``, e.g. the compiled solve_batch_jit,
-    whose graphs the caller has captured) under torch.profiler: device
+    whose graph the caller has captured) under torch.profiler: device
     time by kernel and its sum, the device's busy time (one stream, so
     kernels do not overlap). The profiler's own host overhead lengthens
     the profiled run, so the busy share is given against the unprofiled
-    wall time of the same solve as well."""
+    wall time of the same solve as well. ``extra`` (e.g. a
+    :func:`graph_split`) is added to the line. With ``solve``, one
+    unprofiled call just before the profiled one and one just after give
+    the graph span at the card's speed level of that call (the card runs
+    at two, :data:`SPAN_LEVEL`): the gaps between kernels inside the
+    graphs are their mean less the busy time, where the two agree and the
+    trace holds every launch of the port's kernels (``trace_complete``:
+    the profiler does not see every run of a conditional node's body);
+    else ``None``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    spans = []
+    if solve is not None:
+        spans.append(spanned_call(solve, gm, scs, cfg)[1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2108,21 +2402,36 @@ def profile_main_path(gm, scs, cfg, wall_unprofiled: float,
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
+    if solve is not None:
+        spans.append(spanned_call(solve, gm, scs, cfg)[1])
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
     # The port's kernels, one row per template instantiation, so launches
     # and device time split by shape (K1 by nb, K3 by (nb, r)).
     ours = [dict(name=k[:120], ms=t / 1e3, count=c)
             for k, t, c in rows if "pathopt" in k]
-    emit(dict(phase="profile", route=route, n_knots=cfg.n_knots,
-              wall_ms=wall * 1e3,
-              wall_unprofiled_ms=wall_unprofiled * 1e3,
-              device_busy_ms=busy_s * 1e3,
-              device_busy_share=busy_s / wall_unprofiled,
-              device_busy_share_profiled=busy_s / wall,
-              device_kernels=sum(r[2] for r in rows),
-              top=[dict(name=k[:80], ms=t / 1e3, count=c)
-                   for k, t, c in rows[:12]], port_kernels=ours))
+    report = dict(phase="profile", route=route, n_knots=cfg.n_knots,
+                  wall_ms=wall * 1e3,
+                  wall_unprofiled_ms=wall_unprofiled * 1e3,
+                  device_busy_ms=busy_s * 1e3,
+                  device_busy_share=busy_s / wall_unprofiled,
+                  device_busy_share_profiled=busy_s / wall,
+                  device_kernels=sum(r[2] for r in rows),
+                  traced_port_launches=sum(r["count"] for r in ours),
+                  top=[dict(name=k[:80], ms=t / 1e3, count=c)
+                       for k, t, c in rows[:12]], port_kernels=ours,
+                  **(extra or {}))
+    if spans and "counted_port_launches" in report:
+        complete = (report["traced_port_launches"]
+                    == report["counted_port_launches"])
+        span = statistics.mean(spans)
+        level = abs(spans[0] - spans[1]) <= SPAN_LEVEL * span
+        report.update(trace_complete=complete, span_around_ms=spans,
+                      same_level=level, inside_graph_gap_ms=(
+                          span - busy_s * 1e3) if complete and level
+                      else None)
+    emit(report)
+    return report
 
 
 def main() -> int:
@@ -2144,9 +2453,14 @@ def main() -> int:
     ptxas = [ln.strip() for ln in kernels.build_info.get("nvcc_output", "")
              .splitlines() if "Used" in ln or "spill" in ln
              or "Compiling entry" in ln]
+    runtime, driver = kernels.graph_versions()
+    nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
+                          capture_output=True, text=True).stdout
     emit(dict(phase="build", commands=kernels.build_info.get("commands"),
               seconds=time.perf_counter() - t0, library=str(so),
-              ptxas=ptxas))
+              ptxas=ptxas, torch_cuda=torch.version.cuda,
+              cuda_runtime=runtime, cuda_driver=driver,
+              nvcc_version=nvcc.strip().splitlines()[-2:]))
 
     cfg = PlannerConfig()
     t0 = time.perf_counter()
@@ -2195,9 +2509,15 @@ def main() -> int:
                                      ("long", gm_long, scs_long, cfg_long,
                                       "long")):
             pipeline.solve_batch_jit(g, sc, c)
-            profile_main_path(g, sc, c, comp[run]["replay_ms"] / 1e3,
+            kernels.reset_launches()
+            pipeline.solve_batch_jit(g, sc, c)
+            kernels.sync_counts()
+            split = graph_split(pipeline.solve_batch_jit, g, sc, c)
+            profile_main_path(g, sc, c, split["call_ms"] / 1e3,
                               route=route + "_compiled",
-                              solve=pipeline.solve_batch_jit)
+                              solve=pipeline.solve_batch_jit,
+                              extra=dict(split, counted_port_launches=sum(
+                                  kernels.launches.values())))
 
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():

@@ -71,7 +71,7 @@ def main(argv=None):
     # --- 3. Solve. PlannerConfig defaults mirror the reference's flags;
     # the overrides shrink the static shapes for a quick demo (production
     # uses the defaults: n_knots=128 etc.). solve_batch_jit captures the
-    # pipeline into CUDA graphs on its first call and replays them after.
+    # pipeline into one CUDA graph on its first call and replays it after.
     cfg = PlannerConfig(n_knots=64, n_segment_points=32, dp_layers=24,
                         bspline_samples=64)
     res_b = pipeline.solve_batch_jit(gm, scs, cfg, device=dev)

@@ -1,7 +1,9 @@
 """The port's compiled entry points (``pipeline.solve_batch_jit``,
 ``solve_jit``, the compiled ``replan.replan_step``) on the CPU, where they
-run the same segment runner as on the card without capture
-(``torchutil.Segments``).
+run the same runner as on the card without capture
+(``torchutil.Segments``): the whole stage chain on every call, each QP
+round ending in one read that stands in for the condition a conditional
+graph node tests on the card.
 
 - Equal to eager, bit for bit: every field of the result (bounds included)
   under the default config, TENSION + DP, TENSION2 + A*, the rough rows and
@@ -11,12 +13,15 @@ run the same segment runner as on the card without capture
 - A later call at the same key leaves a returned result as it was; a
   second call at the same key reuses its entry, a new batch size or config
   makes a new one.
-- The pin that the segments can be captured: every segment of every
-  configuration above runs under a dispatch mode that refuses a host read
-  (``aten._local_scalar_dense``), a tensor made from host data
-  (``aten.lift_fresh``) and an operation whose result's shape depends on
-  the data (``nonzero``, a boolean index), the operations a CUDA graph
-  cannot hold. The same mode over the eager path catches its round read.
+- The pin that a call can be captured as one graph: the whole compiled
+  call of every configuration above runs under a dispatch mode that
+  refuses a host read (``aten._local_scalar_dense``), a tensor made from
+  host data (``aten.lift_fresh``) and an operation whose result's shape
+  depends on the data (``nonzero``, a boolean index), the operations a
+  CUDA graph cannot hold, except the loop conditions' reads, one a QP
+  round: as many as the eager path's rounds, which the device's round
+  counters equal. The same mode over the eager path catches its round
+  read.
 
 The bit-for-bit and capture tests run at a small config (``SMALL``) on
 four scenarios, the fixture tests at the fixtures' own configs.
@@ -56,7 +61,9 @@ class HostRead(AssertionError):
 class CaptureGuard(TorchDispatchMode):
     """Refuses the operations a CUDA graph cannot hold (except the reads
     ``torchutil.plain_read`` marks: those of a kernel's plain version,
-    which never runs on the card); counts the operations it let through.
+    which never runs on the card, and the loop conditions' reads
+    ``torchutil.loop_read`` marks, which it counts); counts the operations
+    it let through.
 
     One tensor made from host data is legal: ``t[...] = 0.0`` wraps the
     number in a 0-d CPU tensor, takes the view and fills it with the number
@@ -64,6 +71,7 @@ class CaptureGuard(TorchDispatchMode):
     Any other use of such a tensor is refused."""
 
     seen = 0
+    loop_reads = 0
 
     def __init__(self):
         super().__init__()
@@ -79,7 +87,10 @@ class CaptureGuard(TorchDispatchMode):
         fill_value = func is aten.lift_fresh.default and args[0].dim() == 0
         if ((func in REFUSED and not fill_value) or bool_index) \
                 and not torchutil.in_plain_read():
-            raise HostRead(f"{func} inside a segment")
+            if not (torchutil.in_loop_read()
+                    and func is aten._local_scalar_dense.default):
+                raise HostRead(f"{func} inside a compiled call")
+            CaptureGuard.loop_reads += 1
         CaptureGuard.seen += 1
         out = func(*args, **(kwargs or {}))
         if fill_value:
@@ -89,12 +100,13 @@ class CaptureGuard(TorchDispatchMode):
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every segment run under :class:`CaptureGuard` (after its warm-up, as
-    a capture follows one), with the compiled cache emptied first so every
-    segment is met anew."""
+    """Every compiled call run under :class:`CaptureGuard` (after its key's
+    warm-up, as a capture follows one), with the compiled cache emptied
+    first so every key is met anew."""
     pipeline.COMPILED.clear()
     CaptureGuard.seen = 0
-    monkeypatch.setattr(torchutil, "SEGMENT_GUARD", CaptureGuard)
+    CaptureGuard.loop_reads = 0
+    monkeypatch.setattr(torchutil, "CALL_GUARD", CaptureGuard)
     yield
     pipeline.COMPILED.clear()
 
@@ -120,14 +132,19 @@ def small_batch(n=B):
 
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_compiled_equals_eager_and_segments_capture(name, guarded):
-    """solve_batch_jit equals solve_batch bit for bit in every field, and
-    each of its segments runs under the capture guard."""
+    """solve_batch_jit equals solve_batch bit for bit in every field; the
+    whole call runs under the capture guard, whose only host reads are the
+    loop conditions', one a round of each QP; the device's round counters
+    equal the eager rounds."""
     gm, scs = small_batch()
     cfg = PlannerConfig(**SMALL, **VARIANTS[name])
-    want = pipeline.solve_batch(gm, scs, cfg, device="cpu")
-    got = pipeline.solve_batch_jit(gm, scs, cfg, device="cpu")
+    rounds, counted = {}, {}
+    want = pipeline.solve_batch(gm, scs, cfg, device="cpu", stats=rounds)
+    got = pipeline.solve_batch_jit(gm, scs, cfg, device="cpu", stats=counted)
     assert same(got, want)
     assert CaptureGuard.seen > 1000
+    assert CaptureGuard.loop_reads == sum(rounds.values())
+    assert counted == rounds
     assert bool(got.ok.any())
 
 

@@ -164,9 +164,9 @@ def _sharded_solver(mesh: Mesh, config: PlannerConfig, settings: QPSettings,
 def _sharded_solver_cached(mesh: Mesh, config: PlannerConfig,
                            settings: QPSettings, with_stats: bool):
     """The JAX package's jitted shard_map, per rank: the compiled
-    ``pipeline.solve_batch_jit`` on the rank's rows (its CUDA graphs
+    ``pipeline.solve_batch_jit`` on the rank's rows (its CUDA graph
     captured on the first call and replayed after), then the fleet
-    reductions, issued from the host after the graphs."""
+    reductions, issued from the host after the graph."""
     def run(gm, scs, valid):
         return _solve_rows(gm, scs, valid, config, settings, mesh,
                            with_stats)

@@ -14,8 +14,14 @@ and to ``shape_launches`` under the kernel and its block shape (for K2 and
 K3 also the knots and the launch plan's cluster size, e.g.
 ``fused_admm_round[nb=6,N=512,c=2]``), so a run can show that the main path
 went through each kernel at each of its shapes and plans. A captured CUDA
-graph launches its kernels at every replay without the wrappers running, so
-each replay adds the counts its capture recorded (:func:`add_counts`).
+graph launches its kernels at every replay without the wrappers running,
+and how often its loop bodies run is known only on the device: a compiled
+call's counts are added when they are read (:func:`sync_counts`, which
+:func:`reset_launches` calls first), from the device's count of rounds and
+refactors times the launches each body's capture recorded.
+
+``graph_cond.cu`` is no TPU kernel's port: it adds the conditional graph
+nodes of a compiled call's device-side loops (``torchutil.Segments``).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_factor.cu", "fused_admm_round.cu",
-           "fused_structured_round.cu", "dp_forward.cu")
+           "fused_structured_round.cu", "dp_forward.cu", "graph_cond.cu")
 HEADERS = ("common.cuh", "btri_sweep.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -47,9 +53,34 @@ shape_launches: dict = {}
 build_info: dict = {}
 
 _lib = None
+# Compiled calls whose launches are still on the device, by id: objects
+# with a ``sync()`` that adds them (``torchutil.Segments``).
+_pending: dict = {}
+
+
+def defer_counts(owner):
+    """Register ``owner``, whose ``sync()`` adds launches not yet counted."""
+    _pending[id(owner)] = owner
+
+
+def synced(owner):
+    """``owner`` has added its launches (its ``sync()`` ran)."""
+    _pending.pop(id(owner), None)
+
+
+def sync_counts(check: bool = True):
+    """Add every compiled call's launches that are still on the device
+    (one host read per cache entry replayed since the last sync). Read
+    :data:`launches` and :data:`shape_launches` after it. With ``check``
+    a check that failed in one of those calls raises here (once)."""
+    while _pending:
+        _pending.pop(next(iter(_pending))).sync(check=check)
 
 
 def reset_launches():
+    """Zero the counts, the launches still on the device included; their
+    calls' failed checks are dropped, not raised."""
+    sync_counts(check=False)
     for k in launches:
         launches[k] = 0
     shape_launches.clear()
@@ -62,15 +93,17 @@ def count_launch(name: str, shape: str):
     shape_launches[key] = shape_launches.get(key, 0) + 1
 
 
-def fill_key(tag: str, value: str):
-    """Replace ``tag`` by ``value`` in every launch key that holds it. A
-    wrapper launched before the host has read a part of its key (K2's
-    collision rows, read with the round's flags) counts under a key holding
-    the tag; the caller fills it once it has read the value."""
-    for key in [k for k in shape_launches if tag in k]:
-        n = shape_launches.pop(key)
+def fill_key(tag: str, value: str, counts: dict | None = None):
+    """Replace ``tag`` by ``value`` in every launch key of ``counts``
+    (default :data:`shape_launches`) that holds it. A wrapper launched
+    before the host has read a part of its key (K2's collision rows, read
+    with the round's flags) counts under a key holding the tag; the caller
+    fills it once it has read the value."""
+    counts = shape_launches if counts is None else counts
+    for key in [k for k in counts if tag in k]:
+        n = counts.pop(key)
         new = key.replace(tag, value)
-        shape_launches[new] = shape_launches.get(new, 0) + n
+        counts[new] = counts.get(new, 0) + n
 
 
 def snapshot():
@@ -95,12 +128,12 @@ def restore(before):
     shape_launches.update(before[1])
 
 
-def add_counts(counts: dict):
-    """Count the launches ``counts`` (a :func:`delta`) once more: a graph
-    replay runs every kernel its capture recorded."""
+def add_counts(counts: dict, times: int = 1):
+    """Count the launches ``counts`` (a :func:`delta`) ``times`` more: a
+    graph replays every kernel its capture recorded."""
     for key, n in counts.items():
-        launches[key.split("[", 1)[0]] += n
-        shape_launches[key] = shape_launches.get(key, 0) + n
+        launches[key.split("[", 1)[0]] += n * times
+        shape_launches[key] = shape_launches.get(key, 0) + n * times
 
 
 def nvcc_path() -> str:
@@ -182,8 +215,18 @@ def lib():
         L.pathopt_fused_structured_round.argtypes = (
             [p] * 11 + [i] * 9 + [f] * 3 + [p])
         L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]
+        u64 = ctypes.c_ulonglong
+        L.pathopt_graph_versions.argtypes = [p, p]
+        L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
+        L.pathopt_cond_node.argtypes = [p, u64, i, p]
+        L.pathopt_capture_to.argtypes = [p, p]
+        L.pathopt_capture_end.argtypes = [p]
+        L.pathopt_set_condition.argtypes = [u64, p, p]
         for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
-                   L.pathopt_fused_structured_round, L.pathopt_dp_forward):
+                   L.pathopt_fused_structured_round, L.pathopt_dp_forward,
+                   L.pathopt_graph_versions, L.pathopt_cond_handle,
+                   L.pathopt_cond_node, L.pathopt_capture_to,
+                   L.pathopt_capture_end, L.pathopt_set_condition):
             fn.restype = ctypes.c_int
         L.pathopt_error_string.argtypes = [i]
         L.pathopt_error_string.restype = ctypes.c_char_p
@@ -231,3 +274,76 @@ def kernel_device(*tensors) -> torch.device | None:
     if dev.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, got {dev}")
     return dev
+
+
+# -------------------------- conditional graph nodes --------------------------
+#
+# ``graph_cond.cu``: the nodes of a compiled call's device-side loops, added
+# to the graph a stream is capturing into (``torchutil.Segments``).
+
+# WHILE nodes need this CUDA runtime and driver (1000 major + 10 minor).
+CONDITIONAL_NODES_CUDA = 12040
+
+
+def graph_versions() -> tuple[int, int]:
+    """The CUDA runtime the library was built against and the CUDA
+    driver's."""
+    rt, drv = ctypes.c_int(), ctypes.c_int()
+    _graph_check(lib().pathopt_graph_versions(ctypes.byref(rt),
+                                              ctypes.byref(drv)), "versions")
+    return rt.value, drv.value
+
+
+def require_conditional_nodes():
+    """Raise unless the CUDA runtime and driver have WHILE nodes."""
+    rt, drv = graph_versions()
+    if min(rt, drv) < CONDITIONAL_NODES_CUDA:
+        raise RuntimeError(
+            f"conditional graph nodes need CUDA {CONDITIONAL_NODES_CUDA} in "
+            f"the runtime and the CUDA driver; runtime {rt}, CUDA driver "
+            f"{drv}")
+
+
+def _graph_check(err: int, what: str):
+    if err != 0:
+        msg = lib().pathopt_error_string(err).decode()
+        raise RuntimeError(f"conditional graph node: {what} failed: {msg} "
+                           f"({err})")
+
+
+def cond_handle(stream: int, default: int, assign_default: bool) -> int:
+    """A condition handle of the graph ``stream`` is capturing into; with
+    ``assign_default`` each launch of the graph sets it to ``default``."""
+    h = ctypes.c_ulonglong()
+    _graph_check(lib().pathopt_cond_handle(stream, default,
+                                           int(assign_default),
+                                           ctypes.byref(h)), "handle")
+    return h.value
+
+
+def cond_node(stream: int, handle: int, is_while: bool) -> int:
+    """Add a WHILE (or IF) node on ``handle`` to the graph ``stream`` is
+    capturing into, after the capture's work so far; returns its body."""
+    body = ctypes.c_void_p()
+    _graph_check(lib().pathopt_cond_node(stream, handle, int(is_while),
+                                         ctypes.byref(body)), "node")
+    return body.value
+
+
+def capture_to(stream: int, graph: int):
+    """Capture ``stream``'s work into ``graph`` until :func:`capture_end`."""
+    _graph_check(lib().pathopt_capture_to(stream, graph), "body capture")
+
+
+def capture_end(stream: int):
+    _graph_check(lib().pathopt_capture_end(stream), "body capture end")
+
+
+def set_condition(handle: int, flag: torch.Tensor, stream: int):
+    """Launch the kernel that sets ``handle``'s condition to ``flag``, a
+    0-d bool device tensor, when it runs."""
+    if flag.dtype != torch.bool or flag.dim() != 0:
+        raise ValueError(f"set_condition: flag {flag.dtype} of shape "
+                         f"{tuple(flag.shape)}, expected a 0-d bool")
+    _graph_check(lib().pathopt_set_condition(handle, ptr(flag), stream),
+                 "set_condition")

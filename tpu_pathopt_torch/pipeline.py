@@ -15,7 +15,8 @@ Entry points: :func:`solve_batch`, :func:`solve`, :func:`solve_batch_warm`
 (one replanning solve, warm-started from a :class:`QPWarmStart`) and
 :func:`solve_batch_profiled` (per-stage timing), which issue every
 operation from the host; and the compiled :func:`solve_batch_jit` and
-:func:`solve_jit`, which replay CUDA graphs captured on their first call.
+:func:`solve_jit`, which replay the CUDA graph captured on their first
+call.
 Each runs on ``cuda`` unless the caller passes another device; with no GPU
 and no explicit device it raises.
 """
@@ -119,9 +120,10 @@ def _refit_splines(x, y, n_valid, step=1.0):
 # ------------------------------ pipeline stages ------------------------------
 #
 # Each stage runs its straight-line code as segments of ``drv`` (a
-# ``torchutil.Segments``): eagerly by default, captured into CUDA graphs by
-# the compiled entry points. Every tensor operation of a stage lies inside
-# one of its segments; between them the host only reads the QP rounds' flags.
+# ``torchutil.Segments``) and its QP rounds as ``drv.loop``: eagerly by
+# default, captured into one CUDA graph by the compiled entry points. Every
+# tensor operation of a stage lies inside one of its segments; between them
+# the eager path only reads the QP rounds' flags.
 
 def _prep(scs: Scenario, config: PlannerConfig):
     ok_input = scs.n_raw >= 4
@@ -542,17 +544,22 @@ def solve(gm: maps.GridMap, sc: Scenario, config: PlannerConfig,
 #
 # The counterparts of the JAX package's ``solve_jit`` / ``solve_batch_jit``
 # (``jax.jit`` with ``config`` and ``settings`` static). A compiled call runs
-# the same stage chain as :func:`solve_batch`, as segments between the QP
-# rounds' host reads (``torchutil.Segments``). On CUDA each segment is
-# captured into a CUDA graph on the first call of its static key (config,
-# settings, every input's shape and dtype and the map's non-tensor fields,
-# whether a warm start is passed, the device) and replayed on every later
-# call; a failed capture or replay raises, nothing falls back to the eager
-# path. On the CPU the same segments run without capture. The caller's
-# inputs are copied into the key's static buffers on every call, and the
-# results are cloned out of the graphs' memory, so a later call never
-# changes a result already returned. The results are the eager path's, bit
-# for bit: the same kernels run on the same values.
+# the same stage chain as :func:`solve_batch` through the runner of its
+# static key (config, settings, every input's shape and dtype and the map's
+# non-tensor fields, whether a warm start is passed, the device;
+# ``torchutil.Segments``). On CUDA the key's first call captures the whole
+# chain into one CUDA graph, each QP solve's rounds a WHILE node and each
+# refactor an IF node inside it, and every call replays that graph: no host
+# decision and no host read inside a call, as in the jitted JAX program; a
+# failed capture or replay raises, nothing falls back to the eager path. On
+# the CPU the same chain runs on every call, each QP round ending in one
+# read that stands in for the node's condition. The caller's inputs are
+# copied into the key's static buffers on every call, and the results are
+# cloned out of the graph's memory, so a later call never changes a result
+# already returned. The results are the eager path's, bit for bit: the same
+# kernels run on the same values. The QP solvers' round counts and the
+# kernels' launch counts stay on the device until asked for (``stats``, or
+# ``kernels.sync_counts``): then one read after the call.
 
 COMPILED = SegmentCache(maxsize=16)
 
@@ -564,7 +571,9 @@ def compiled_call(gm: maps.GridMap, scenarios: Scenario,
                   tail=None, tail_key=None):
     """One compiled call of the stage chain (see above); ``tail`` and
     ``return_warm`` as in :func:`_pipeline`, ``tail_key`` the static
-    arguments ``tail`` depends on (part of the cache key)."""
+    arguments ``tail`` depends on (part of the cache key). ``stats``, if
+    given, receives each QP's rounds as :func:`solve_batch` gives them,
+    read from the device after the call."""
     if settings is None:
         settings = config.qp_settings()
     dev = resolve_device(device)
@@ -574,10 +583,14 @@ def compiled_call(gm: maps.GridMap, scenarios: Scenario,
     inputs = (gm, scenarios, warm)
     key = (config, settings, return_warm, tail_key, dev, signature(inputs))
     segs = COMPILED.get(key, dev)
-    gm_s, scs_s, warm_s = segs.load(inputs)
-    out = _pipeline(segs, gm_s, scs_s, config, settings, stats, None, warm_s,
-                    return_warm, tail)
-    return tree_map(torch.clone, out)
+    out = segs.call(lambda drv, gm_s, scs_s, warm_s: _pipeline(
+        drv, gm_s, scs_s, config, settings, None, None, warm_s, return_warm,
+        tail), inputs)
+    out = tree_map(torch.clone, out)
+    if stats is not None:
+        stats.update({f"{name}_rounds": n
+                      for name, n in segs.sync().items()})
+    return out
 
 
 def solve_batch_jit(gm: maps.GridMap, scenarios: Scenario,

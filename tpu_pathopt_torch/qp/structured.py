@@ -13,8 +13,8 @@ OSQP semantics: relaxed ADMM, per-row rho classes, per-element adaptive rho
 with selective refactor, unscaled-residual termination; converged elements
 stay frozen. The rounds run batch-global (:func:`run_rounds`): setup,
 round and refactor are separate functions over one in-place state, and each
-round ends in one host read of its loop test and refactor gate, so a
-compiled call captures each of them as a CUDA graph.
+round computes its loop test and refactor gate on the device, so a compiled
+call runs them as conditional nodes of one CUDA graph.
 """
 
 from __future__ import annotations
@@ -123,7 +123,9 @@ class StructuredSolution:
     converged: torch.Tensor  # (B,) bool
     pri_res: torch.Tensor
     dua_res: torch.Tensor
-    rounds: int = 0          # batch-global rounds run (host-side loop)
+    # Batch-global rounds run: an int on the eager path, a 0-d device
+    # tensor in a compiled call (``run_rounds``).
+    rounds: int | torch.Tensor = 0
 
 
 @dataclasses.dataclass
@@ -131,8 +133,8 @@ class StructuredRun:
     """One batch of block-banded solves in flight: the QP, its kernel-layout
     copies and row classes (read only), and the loop state, which the
     rounds and refactors update in place (:func:`run_rounds`). ``flags``
-    is the round's two host-read values: any element still active, any
-    element that needs a refactor."""
+    is the round's loop test and refactor gate: any element still active,
+    any element that needs a refactor."""
     qp: BlockBandedQP
     cls_rho: torch.Tensor
     lanes: tuple | None      # (a_cur, a_prev, q, lb, ub) batch-last
@@ -263,30 +265,25 @@ def structured_refactor(run: StructuredRun, settings: QPSettings
 
 def run_rounds(drv, name: str, run, round_fn, refactor_fn, max_iter: int,
                on_read=None):
-    """The host loop of a QP solve, shared by every solver of the port:
-    rounds until no element is active, each ended by one host read of the
-    round's ``flags`` (any element active, any element needs a refactor),
-    and a refactor after each round that asks for one. ``drv`` is a
-    ``torchutil.Segments``; the round and the refactor run as its segments
-    ``name + ".round"`` and ``name + ".refactor"``, in place on ``run``.
-    ``on_read(flags)``, if given, sees every read. Returns (run, rounds).
-    Every element starts unconverged at iteration 0, so the first round
-    runs without a read whenever ``max_iter`` > 0."""
-    rounds = 0
-    active = max_iter > 0
-    while active:
-        run = drv(name + ".round", round_fn, run, into=run)
-        rounds += 1
-        flags = drv.read(run.flags)
-        if on_read is not None:
-            on_read(flags)
-        active, need = flags[0], flags[1]
-        if need:
-            run = drv(name + ".refactor", refactor_fn, run, into=run)
-    return run, rounds
+    """The rounds of a QP solve, shared by every solver of the port: the
+    JAX package's ``lax.while_loop`` on ``any(~converged & (iters <
+    max_iter))`` with a ``lax.cond`` around the refactor. Each round
+    (segment ``name + ".round"``) computes its ``flags`` on the device (any
+    element active, any element needs a refactor); a refactor (``name +
+    ".refactor"``) follows each round that asks for one, and the rounds
+    stop at the first round whose first flag is False. Every element
+    starts unconverged at iteration 0, so the first round runs whenever
+    ``max_iter`` > 0. ``drv`` is a ``torchutil.Segments``: on the eager
+    path a host loop with one read a round (``on_read(flags)``, if given,
+    sees every read), in a compiled call on the card a WHILE node around
+    the round and an IF node around the refactor (:meth:`Segments.loop`).
+    Returns (run, rounds): rounds an int on the eager path, a 0-d device
+    tensor in a compiled call."""
+    return drv.loop(name, run, round_fn, refactor_fn, max_iter > 0,
+                    on_read=on_read)
 
 
-def structured_solution(run: StructuredRun, rounds: int
+def structured_solution(run: StructuredRun, rounds
                         ) -> StructuredSolution:
     return StructuredSolution(v=run.v, y=run.y, z=run.z, iters=run.it,
                               converged=run.conv, pri_res=run.pri,
@@ -294,7 +291,7 @@ def structured_solution(run: StructuredRun, rounds: int
 
 
 def solve_structured(drv, name: str, run: StructuredRun,
-                     settings: QPSettings) -> tuple[StructuredRun, int]:
+                     settings: QPSettings) -> tuple:
     """The rounds of a set-up solve through the segment runner ``drv``."""
     return run_rounds(
         drv, name, run, functools.partial(structured_round, settings=settings),

@@ -88,9 +88,10 @@ def replan_step(gm: maps.GridMap, scs: pipeline.Scenario,
     """One replanning cycle, compiled (the JAX package's jitted
     ``replan_step``, static in ``config``, ``settings``, ``advance_ds`` and
     ``use_warm``): solve (warm-started), carry the solver state, advance the
-    batch along the solved paths, all in the segments of one compiled call
-    (``pipeline.compiled_call``: CUDA graphs captured on the first call of
-    a key and replayed after; the same segments uncaptured on the CPU).
+    batch along the solved paths, all in one compiled call
+    (``pipeline.compiled_call``: one CUDA graph captured on the first call
+    of a key and replayed after, no host read inside; the same program run
+    on every call on the CPU).
     Returns ``(PathResult, QPWarmStart, Scenario)`` on ``device``, bit for
     bit :func:`replan_step_eager`'s. ``use_warm=False`` runs the same
     cycle cold (to measure what warm starting buys)."""
@@ -138,9 +139,10 @@ def _drive_stream(step, scs, warm, n_steps: int, consume,
 
     ``step(scs, warm) -> (PathResult, warm, scs, (n_ok, sum_iters))`` with
     the statistics as 0-d device tensors, over ``n_scenarios`` scenarios
-    (default: the batch's). The QP solvers still read the round's flags to
-    the host at the end of every round, so a cycle is not free of
-    synchronisation; the stream adds none of its own."""
+    (default: the batch's). A compiled cycle on the card reads nothing to
+    the host, so the cycles are issued back to back and the device runs
+    them without waiting on the host; the stream adds no read of its
+    own."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     B = int(scs.n_raw.shape[0]) if n_scenarios is None else n_scenarios
@@ -226,7 +228,7 @@ def _sharded_replan_step(mesh, config: PlannerConfig,
     shard_map ``_sharded_replan_step``): the compiled :func:`replan_step`
     on this rank's rows and their warm state, then one ``all_reduce`` of
     the cycle's fleet scalars (scenarios ok, ADMM iterations), issued from
-    the host after the graphs. ``step(gm, scs, warm) -> (PathResult, warm,
+    the host after the graph. ``step(gm, scs, warm) -> (PathResult, warm,
     scs, (n_ok, sum_iters))``."""
     from tpu_pathopt_torch import dist
 

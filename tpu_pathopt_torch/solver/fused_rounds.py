@@ -267,13 +267,15 @@ def collision_rows_device(coll_coef):
     return lane(rows.to(F32)), torch.stack([ok, (rows == rows[:1, :1]).all()])
 
 
+ROWS_ERROR = ("coll_coef: K2 takes collision rows with zero kappa and u "
+              "columns and the slack columns [[1, 0], [0, 1]]")
+
+
 def check_rows_flags(ok):
     """Raise ValueError unless ``ok`` (the first flag of
     :func:`collision_rows_device`, read to the host) holds."""
     if not ok:
-        raise ValueError("coll_coef: K2 takes collision rows with zero kappa "
-                         "and u columns and the slack columns [[1, 0], "
-                         "[0, 1]]")
+        raise ValueError(ROWS_ERROR)
 
 
 def collision_rows(coll_coef):

@@ -13,7 +13,7 @@ plain PyTorch rounds run, their solve by parallel prefix where
 ``settings.pscan`` asks for it (it selects nothing for the kernels, as in the
 JAX package). The rounds are batch-global (``structured.run_rounds``):
 setup, round and refactor are separate functions over one in-place state,
-each round ending in one host read of its loop test and refactor gate.
+each round computing its loop test and refactor gate on the device.
 
 :func:`solve_path_qp` and :func:`trace_path_rounds` run the JAX package's
 scalar rounds (uninverted factors, a refactor every round) on a batch; the
@@ -27,7 +27,6 @@ import functools
 
 import torch
 
-from tpu_pathopt_torch import kernels
 from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.qp.admm import QPSettings
 from tpu_pathopt_torch.qp.structured import run_rounds
@@ -49,7 +48,9 @@ class PathQPSolution:
     # Final per-element rho; pass 2 starts from pass 1's (OSQP keeps rho
     # across warm-started re-solves, base_solver.cpp:97-117).
     rho_bar: torch.Tensor    # (B,)
-    rounds: int = 0          # batch-global rounds run (host-side loop)
+    # Batch-global rounds run: an int on the eager path, a 0-d device
+    # tensor in a compiled call (``structured.run_rounds``).
+    rounds: int | torch.Tensor = 0
 
 
 def _rows(mask, a):
@@ -176,9 +177,9 @@ class PathRun:
     """One batch of path-QP solves in flight: the QP and what the rounds
     read of it (bounds, row classes, the kernel-layout copies), and the loop
     state, which the rounds and refactors update in place. ``flags`` holds
-    the round's host-read values: [any element active, any element needs a
-    refactor, K2's collision rows have its structure, they are the same at
-    every knot] (the last two from the setup)."""
+    [any element active, any element needs a refactor, K2's collision rows
+    have its structure, they are the same at every knot] (the last two from
+    the setup); the eager path reads all four at the end of each round."""
     qp: PathQP
     bounds: tuple            # (lb_knot, ub_knot, lb_end, ub_end)
     cls: tuple               # (cls_knot, cls_end)
@@ -302,7 +303,10 @@ def path_round(run: PathRun, settings: QPSettings) -> PathRun:
     pri_res, dua_res, n_az, n_pd = res[0], res[1], res[2], res[3]
     eps_pri = st.eps_abs + st.eps_rel * n_az
     eps_dua = st.eps_abs + st.eps_rel * n_pd
-    conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua))
+    # Collision rows K2 does not take converge no element (a compiled call
+    # raises on them only when its checks are read: Segments.check).
+    conv_new = conv | ((pri_res <= eps_pri) & (dua_res <= eps_dua)
+                       & run.flags[2])
 
     rho_bar, need = run.rho_bar, torch.zeros_like(conv)
     if st.adaptive_rho:
@@ -338,14 +342,15 @@ def path_refactor(run: PathRun, settings: QPSettings) -> PathRun:
 ROWS_TAG = "{rows}"
 
 
-def check_rows(flags):
+def check_rows(flags) -> dict:
     """After a round's read: raise where the setup found collision rows K2
-    does not take, and fill K2's launch key with what the rows are."""
+    does not take; return the fill of K2's launch key (``{ROWS_TAG:
+    value}``), what the rows are."""
     fused_rounds.check_rows_flags(flags[2])
-    kernels.fill_key(ROWS_TAG, "" if flags[3] else ",rough")
+    return {ROWS_TAG: "" if flags[3] else ",rough"}
 
 
-def path_solution(run: PathRun, rounds: int) -> PathQPSolution:
+def path_solution(run: PathRun, rounds) -> PathQPSolution:
     state = run.state
     if run.lanes is not None:
         state = tuple(unlane(a) for a in state)
@@ -356,9 +361,11 @@ def path_solution(run: PathRun, rounds: int) -> PathQPSolution:
                           rounds=rounds)
 
 
-def solve_path(drv, name: str, run: PathRun, settings: QPSettings
-               ) -> tuple[PathRun, int]:
-    """The rounds of a set-up solve through the segment runner ``drv``."""
+def solve_path(drv, name: str, run: PathRun, settings: QPSettings) -> tuple:
+    """The rounds of a set-up solve through the segment runner ``drv``;
+    the collision rows' check rides on the first round's read on the eager
+    path and is carried on the device in a compiled call."""
+    drv.check(name + ".rows", run.flags[2], fused_rounds.ROWS_ERROR)
     return run_rounds(
         drv, name, run, functools.partial(path_round, settings=settings),
         functools.partial(path_refactor, settings=settings),

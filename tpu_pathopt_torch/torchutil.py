@@ -111,8 +111,8 @@ _PLAIN_READS = [0]
 @contextlib.contextmanager
 def plain_read():
     """Marks a host read that only a kernel's plain version makes: it runs
-    on CPU tensors, never in a segment on the card, so a segment guard
-    (:data:`SEGMENT_GUARD`) lets it pass (:func:`in_plain_read`)."""
+    on CPU tensors, never in a compiled call on the card, so a call guard
+    (:data:`CALL_GUARD`) lets it pass (:func:`in_plain_read`)."""
     _PLAIN_READS[0] += 1
     try:
         yield
@@ -122,6 +122,28 @@ def plain_read():
 
 def in_plain_read() -> bool:
     return _PLAIN_READS[0] > 0
+
+
+
+
+_LOOP_READS = [0]
+
+
+@contextlib.contextmanager
+def loop_read():
+    """Marks the one host read a compiled call on the CPU makes in each
+    round of a device-side loop: the runner's stand-in for the condition a
+    conditional graph node tests on the card (:meth:`Segments.loop`). A
+    call guard (:data:`CALL_GUARD`) lets it pass (:func:`in_loop_read`)."""
+    _LOOP_READS[0] += 1
+    try:
+        yield
+    finally:
+        _LOOP_READS[0] -= 1
+
+
+def in_loop_read() -> bool:
+    return _LOOP_READS[0] > 0
 
 
 # ------------------------- segments (compiled calls) -------------------------
@@ -154,11 +176,11 @@ def signature(obj):
     return obj
 
 
-# A context-manager factory wrapped around every segment body a compiled
-# call runs on the CPU (after the segment's warm-up, where a capture on the
-# card would come), or None. Tests set it to a dispatch mode that refuses
-# what a CUDA graph cannot hold.
-SEGMENT_GUARD = None
+# A context-manager factory wrapped around the whole program a compiled call
+# runs on the CPU (after the key's warm-up, where a capture on the card
+# would come), or None. Tests set it to a dispatch mode that refuses what a
+# CUDA graph cannot hold.
+CALL_GUARD = None
 
 
 def _copy_into(dst, src):
@@ -174,55 +196,72 @@ def _copy_into(dst, src):
     return dst
 
 
-@dataclasses.dataclass
-class _Captured:
-    """One captured segment: its graph, the addresses of the arguments it
-    was captured on, its result and the kernel launches it holds."""
-    graph: object
-    arg_ptrs: list
-    out: object
-    launch_delta: dict
+def _bump(tally: torch.Tensor, i: int):
+    """Add one to ``tally[i]`` in place (one kernel, no host value)."""
+    tally[i:i + 1].add_(1)
 
 
 class Segments:
-    """The segment runner of one compiled call: the straight-line pieces of
-    a program between two host decisions, each called as
-    ``segs(name, fn, *args, into=None)``.
+    """The runner of one program: the eager path's stage chain, or one
+    compiled call's. The program's straight-line pieces are segments,
+    ``drv(name, fn, *args, into=None)``, run at once; its QP solves'
+    rounds are :meth:`loop`, the counterpart of ``lax.while_loop`` with a
+    ``lax.cond`` around each refactor. With ``into`` (a pytree of tensors,
+    e.g. a solver's loop state) the result of ``fn`` is copied into those
+    tensors and ``into`` is returned: a round updates its state in place.
 
-    - ``capture=False`` (the eager path, and with ``compiled`` a compiled
-      call on the CPU): ``fn(*args)`` runs at once; in a compiled call
-      under :data:`SEGMENT_GUARD` if one is set, after one warm-up.
-    - ``capture=True`` (a compiled call on CUDA): the first call of ``name``
-      runs ``fn`` once on a side stream (the warm-up: library workspaces,
-      constants), captures it into a CUDA graph in the key's memory pool
-      on that stream, and replays it; every later call replays the graph.
-      The arguments must be the tensors it was captured on (the previous
-      segments' results, or the key's static inputs), else it raises.
-      Nothing falls back to running ``fn`` eagerly.
+    A compiled call (:meth:`call`) runs in one of these modes:
 
-    With ``into`` (a pytree of tensors, e.g. a solver's loop state) the
-    result of ``fn`` is copied into those tensors and ``into`` is returned:
-    a round updates its state in place, so the next replay reads it where
-    the graph reads. Without it the result is returned (on CUDA the
-    captured graph's own tensors, rewritten by every replay).
+    - on CUDA (``capture``): the first call of the key runs the program
+      once as the eager path does (the warm-up: constants, library
+      workspaces, the launch keys and the checks the host reads), then
+      captures the whole program into one CUDA graph in the key's memory
+      pool, each loop a WHILE node whose body holds the round and an IF
+      node around the refactor (``csrc/graph_cond.cu``); every call,
+      the first too, replays that graph. No host read is left inside a
+      call, and nothing falls back to the eager loop: missing conditional
+      nodes, a failed capture or a failed replay raise.
+    - on the CPU: the program runs on every call, under
+      :data:`CALL_GUARD` if one is set (after one warm-up), each loop on
+      the host with one read a round, marked as the condition's stand-in
+      (:func:`loop_read`), and otherwise as the card runs it: round and
+      refactor counts kept on the device, checks carried there.
 
-    :meth:`read` is the one host read between segments."""
+    A compiled call's launch counts and round counts stay on the device
+    until :meth:`sync` reads them (``kernels.sync_counts``)."""
 
-    def __init__(self, device=None, capture: bool = False,
-                 compiled: bool = False):
+    def __init__(self, device=None, capture: bool = False):
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
         self.capture = capture
-        self.compiled = compiled or capture
         if capture and self.device.type != "cuda":
             raise ValueError(f"segments capture on CUDA, not {self.device}")
-        self.segments: dict = {}
+        # "eager" (and a compiled call's "warm" up) loops on the host with
+        # one read a round; "run" is a compiled call on the CPU, "capture"
+        # one on the card.
+        self.mode = "eager"
         self.static_in = None
         self.capture_seconds = 0.0
+        self.graph = None
+        self.out = None
+        self.conditional_nodes = 0
+        self.loops: dict = {}     # name -> (4,) int64 tally on the device
+        self.faults: dict = {}    # check name -> (1,) int64 tally
+        self.messages: dict = {}  # check name -> its error message
+        self.fills: dict = {}     # loop name -> launch-key fills read
+        self.deltas: dict = {}    # body name -> its launches, once
+        self.static = None        # launches outside the loops, a call
+        self.replays = 0          # calls whose launches are not yet added
+        self._synced: dict = {}   # loop name -> (rounds, refactors) added
+        self._warm = False
         if capture:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-        self._warm = set()
+            # A body is captured on the stream of its depth: a WHILE body
+            # on the first, the IF body nested in it on the second.
+            self._body_streams = [torch.cuda.Stream(self.device)
+                                  for _ in range(2)]
+            self._depth = 0
 
     def load(self, obj):
         """The key's static copy of the caller's inputs ``obj`` (a pytree):
@@ -239,25 +278,7 @@ class Segments:
         return host_flags(flags)
 
     def __call__(self, name, fn, *args, into=None):
-        if not self.capture:
-            return self._run(name, fn, args, into)
-        seg = self.segments.get(name)
-        if seg is None:
-            seg = self.segments[name] = self._capture(name, fn, args, into)
-        elif [t.data_ptr() for t in tree_leaves(args)] != seg.arg_ptrs:
-            raise RuntimeError(f"segment {name!r}: replayed on other tensors "
-                               "than it was captured on")
-        seg.graph.replay()
-        kernels.add_counts(seg.launch_delta)
-        return seg.out
-
-    def _run(self, name, fn, args, into):
-        guard = SEGMENT_GUARD if self.compiled else None
-        if guard is not None and name not in self._warm:
-            fn(*args)       # the warm-up, as a capture is preceded by one
-            self._warm.add(name)
-        with guard() if guard is not None else contextlib.nullcontext():
-            out = fn(*args)
+        out = fn(*args)
         if into is None:
             return out
         self._check_into(name, out, into)
@@ -278,28 +299,246 @@ class Segments:
             raise RuntimeError(f"segment {name!r}: a result aliases a "
                                "destination it is copied into")
 
-    def _capture(self, name, fn, args, into):
+    # ------------------------------ loops ------------------------------------
+
+    def loop(self, name: str, run, round_fn, refactor_fn, start: bool,
+             on_read=None):
+        """A QP solve's rounds: ``run = round_fn(run)`` (segment ``name +
+        ".round"``) while ``run.flags[0]`` after it, and after each round
+        ``run = refactor_fn(run)`` (segment ``name + ".refactor"``) where
+        ``run.flags[1]``; no round where ``start`` is False. Both update
+        ``run`` in place. ``on_read(flags)``, if given, sees each round's
+        read on the eager path and in a warm-up and returns the launch-key
+        fills it decided (``{tag: value}``, see ``kernels.fill_key``); a
+        compiled call reuses the warm-up's. Returns ``(run, rounds)``:
+        rounds a Python int on the eager path, in a compiled call a 0-d
+        int64 device tensor (read only by :meth:`sync`)."""
+        if self.mode == "capture":
+            return self._loop_graph(name, run, round_fn, refactor_fn, start)
+        compiled = self.mode == "run"
+        tally = (self._tally(self.loops, name, 4) if self.mode != "eager"
+                 else None)
+        if compiled:
+            tally[:2].zero_()
+        rounds = 0
+        active = start
+        while active:
+            run = self._body(name, ".round", round_fn, run)
+            rounds += 1
+            if compiled:
+                _bump(tally, 0)
+                with loop_read():
+                    flags = self.read(run.flags)
+            else:
+                flags = self.read(run.flags)
+                if on_read is not None:
+                    self._fill(name, on_read(flags) or {})
+            active, need = flags[0], flags[1]
+            if need:
+                run = self._body(name, ".refactor", refactor_fn, run)
+                if compiled:
+                    _bump(tally, 1)
+        if not compiled:
+            return run, rounds
+        tally[2:] += tally[:2]
+        return run, tally[0]
+
+    def _loop_graph(self, name, run, round_fn, refactor_fn, start):
+        """:meth:`loop` captured: a WHILE node whose first test is
+        ``start`` and whose body is the round, an IF node on
+        ``run.flags[1]`` around the refactor, and the kernel that sets the
+        next test from ``run.flags[0]``."""
+        tally = self._tally(self.loops, name, 4)
+        tally[:2].zero_()
+        with self._node(True, default=int(start)) as handle:
+            run = self._body(name, ".round", round_fn, run)
+            _bump(tally, 0)
+            with self._node(False, flag=run.flags[1]):
+                run = self._body(name, ".refactor", refactor_fn, run)
+                _bump(tally, 1)
+            kernels.set_condition(handle, run.flags[0], self._stream())
+        tally[2:] += tally[:2]
+        return run, tally[0]
+
+    def _body(self, name, part, fn, run):
+        """A loop's round or refactor, in place on ``run``. In a compiled
+        call its launches are not counted as they happen: they are
+        recorded once, as the body's, and counted from the device's tally
+        of how often the body ran (:meth:`sync`)."""
+        if self.mode not in ("run", "capture"):
+            return self(name + part, fn, run, into=run)
+        before = kernels.snapshot()
+        run = self(name + part, fn, run, into=run)
+        delta = kernels.delta(before)
+        kernels.restore(before)
+        for tag, value in self.fills.get(name, {}).items():
+            kernels.fill_key(tag, value, delta)
+        self.deltas.setdefault(name + part, delta)
+        return run
+
+    def _fill(self, name, fills: dict):
+        for tag, value in fills.items():
+            kernels.fill_key(tag, value)
+        if self.mode == "warm":
+            self.fills[name] = fills
+
+    def check(self, name: str, ok: torch.Tensor, message: str):
+        """A condition the eager path raises on when a loop reads it (its
+        ``on_read``), carried on the device in a compiled call: ``ok`` (a
+        0-d bool tensor) False in a call raises ``ValueError(message)`` at
+        the first :meth:`sync` after that call, and only there."""
+        if self.mode == "eager":
+            return
+        tally = self._tally(self.faults, name, 1)
+        self.messages[name] = message
+        if self.mode != "warm":
+            tally |= (~ok).to(torch.int64)
+
+    def _tally(self, table: dict, name: str, size: int) -> torch.Tensor:
+        """An int64 tally of ``table`` on the device (a loop's rounds,
+        refactors and their totals over every call; a check's fault flag),
+        made in the warm-up, before a capture."""
+        t = table.get(name)
+        if t is None:
+            if self.mode == "capture":
+                raise RuntimeError(f"{name!r} was not met in the warm-up")
+            t = table[name] = torch.zeros(size, dtype=torch.int64,
+                                          device=self.device)
+        return t
+
+    # ----------------------- conditional graph nodes -------------------------
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    @contextlib.contextmanager
+    def _node(self, is_while: bool, default: int = 0, flag=None):
+        """Add a WHILE (or IF, on the 0-d bool ``flag``) node to the graph
+        the current stream is capturing into and capture the block's work
+        into its body, on a stream of the body's depth. PyTorch routes a
+        capture's allocations to its pool by the capture's id, and a body
+        is a capture of its own: the key's pool is handed to the body's
+        stream for the block and back to the parent's after it. Yields the
+        node's handle."""
+        s = self._stream()
+        handle = kernels.cond_handle(s, default, assign_default=is_while)
+        if flag is not None:
+            kernels.set_condition(handle, flag, s)
+        body = kernels.cond_node(s, handle, is_while)
+        self.conditional_nodes += 1
+        stream = self._body_streams[self._depth]
+        dev = self.device.index
+        torch._C._cuda_endAllocateToPool(dev, self.pool)
+        try:
+            with torch.cuda.stream(stream):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(dev,
+                                                                self.pool)
+                try:
+                    kernels.capture_to(stream.cuda_stream, body)
+                    self._depth += 1
+                    try:
+                        yield handle
+                    finally:
+                        self._depth -= 1
+                        kernels.capture_end(stream.cuda_stream)
+                finally:
+                    torch._C._cuda_endAllocateToPool(dev, self.pool)
+                    torch._C._cuda_releasePool(dev, self.pool)
+        finally:
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev, self.pool)
+            torch._C._cuda_releasePool(dev, self.pool)
+
+    # --------------------------- compiled calls ------------------------------
+
+    def call(self, program, inputs):
+        """One compiled call of ``program(drv, *static)``, ``static`` the
+        key's copy of ``inputs`` (a tuple): on the card a replay of the
+        key's graph (captured by the first call), on the CPU a run of the
+        program (see the class). Returns the program's result: on CUDA the
+        graph's own tensors, rewritten by every replay."""
+        static = self.load(inputs)
+        if not self.capture:
+            guard = CALL_GUARD
+            if guard is not None and not self._warm:
+                self._warm_up(program, static)
+            self.mode = "run"
+            with guard() if guard is not None else contextlib.nullcontext():
+                out = self._counted(program, static)
+            self._called()
+            return out
+        if self.graph is None:
+            self._capture(program, static)
+        self.graph.replay()
+        self._called()
+        return self.out
+
+    def _warm_up(self, program, static):
+        self.mode = "warm"
+        program(self, *static)
+        self._warm = True
+
+    def _counted(self, program, static):
+        """Run the program, keeping its launches outside the loops as a
+        call's (:attr:`static`) instead of counting them now."""
+        before = kernels.snapshot()
+        try:
+            out = program(self, *static)
+            if self.static is None:
+                self.static = kernels.delta(before)
+            return out
+        finally:
+            kernels.restore(before)
+
+    def _capture(self, program, static):
+        kernels.require_conditional_nodes()
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         side = self.stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = fn(*args)                       # warm-up
-            if into is not None:
-                self._check_into(name, out, into)
-        del out
-        before = kernels.snapshot()
+            self._warm_up(program, static)
+        self.mode = "capture"
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=side):
-            out = fn(*args)
-            if into is not None:
-                out = _copy_into(into, out)
-        delta = kernels.delta(before)
-        kernels.restore(before)
+            out = self._counted(program, static)
         cur.wait_stream(side)
+        self.graph, self.out = graph, out
         self.capture_seconds += time.perf_counter() - t0
-        return _Captured(graph, [t.data_ptr() for t in tree_leaves(args)],
-                         out, delta)
+
+    def _called(self):
+        self.replays += 1
+        kernels.defer_counts(self)
+
+    def sync(self, check: bool = True) -> dict:
+        """Read the device's tallies (one host read) and count the launches
+        of the calls since the last sync: each call's launches outside the
+        loops, and each body's times the rounds and refactors it ran.
+        Clears the checks' faults; with ``check``, raises where a check
+        failed in any of those calls. Returns each loop's rounds in the
+        last call."""
+        kernels.synced(self)
+        tallies = list(self.loops.values()) + list(self.faults.values())
+        vals = torch.cat(tallies).tolist() if tallies else []
+        for t in self.faults.values():
+            t.zero_()
+        if self.static is not None:
+            kernels.add_counts(self.static, self.replays)
+        self.replays = 0
+        rounds = {}
+        for i, name in enumerate(self.loops):
+            r, _, total_r, total_f = vals[4 * i:4 * i + 4]
+            done_r, done_f = self._synced.get(name, (0, 0))
+            kernels.add_counts(self.deltas.get(name + ".round", {}),
+                               total_r - done_r)
+            kernels.add_counts(self.deltas.get(name + ".refactor", {}),
+                               total_f - done_f)
+            self._synced[name] = (total_r, total_f)
+            rounds[name] = r
+        failed = [self.messages[name] for name, v in
+                  zip(self.faults, vals[4 * len(self.loops):]) if v]
+        if failed and check:
+            raise ValueError("; ".join(failed))
+        return rounds
 
 
 EAGER = Segments()
@@ -307,7 +546,9 @@ EAGER = Segments()
 
 class SegmentCache:
     """Compiled calls' :class:`Segments`, one per static key, the least
-    recently used dropped past ``maxsize`` (its graphs and pool freed)."""
+    recently used dropped past ``maxsize`` (its graph and pool freed, its
+    launches counted first and its checks' faults dropped: they are
+    raised only by a read the caller makes)."""
 
     def __init__(self, maxsize: int = 16):
         self.maxsize = maxsize
@@ -317,12 +558,12 @@ class SegmentCache:
         """The key's segments, made on its first call."""
         segs = self.entries.pop(key, None)
         if segs is None:
-            segs = Segments(device, capture=device.type == "cuda",
-                            compiled=True)
+            segs = Segments(device, capture=device.type == "cuda")
         self.entries[key] = segs
         while len(self.entries) > self.maxsize:
-            self.entries.pop(next(iter(self.entries)))
+            self.entries.pop(next(iter(self.entries))).sync(check=False)
         return segs
 
     def clear(self):
-        self.entries.clear()
+        while self.entries:
+            self.entries.pop(next(iter(self.entries))).sync(check=False)
