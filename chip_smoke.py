@@ -58,8 +58,14 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 5. ``replan``: ``replan.replan_stream`` (each cycle the compiled
    ``replan_step``) on the batch, 6 cycles warm and 6 cold after a
    1-cycle warm-up of each; every cycle must succeed and the warm cycles
-   take no more ADMM iterations than the cold; and the
-   ``solve_batch_profiled`` stage times of one solve;
+   take no more ADMM iterations than the cold; and
+   ``solve_batch_profiled`` with each stage a compiled call of its own
+   (``profiled_stages``): one untimed call that captures the stage keys,
+   the recorded stage times (``profiled_stage_ms``, under the JAX
+   package's stage names) beside the eager ones (``eager_stage_ms``) and
+   their sum beside a ``solve_batch_jit`` replay, each stage key one graph
+   with its conditional nodes, capture s and pool bytes, the result bit
+   for bit ``solve_batch``'s with its rounds, no host read in a call;
 6. ``golden``: solves the golden fixtures' 8 scenarios on the card and
    holds each result against the JAX package's stored one
    (``tpu_pathopt_torch/testdata/``: the default, TENSION at both
@@ -104,10 +110,26 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    solves/s, the graph pool's bytes, the conditional nodes and the
    launches by kernel and shape on replay. It raises first unless the
    CUDA runtime and driver have conditional nodes (12.4);
+6c. ``solvers``: the seven compiled standalone QP solvers (the JAX
+   package's jitted ``admm.solve_qp``, ``solve_qp_batched``,
+   ``trace_rounds``, ``structured.solve_structured_batched``,
+   ``path_solver.solve_path_qp``, ``trace_path_rounds`` and
+   ``solve_path_qp_batched``) on the oracle families' own QPs: the
+   block-banded solver on TENSION2 and post (K1, K3), the batched path
+   solver on pass 2 (K1, K2), the dense batched solver in float64 and
+   float32, the dense scalar solver in both, the dense trace, the scalar
+   path solver and its trace on 4 lanes; each held bit for bit in every
+   field to its ``_eager`` twin, with one graph, its conditional nodes, no
+   host read in a call, the eager rounds and launches by key; it prints
+   the eager ms, the first call's s, the capture s, the replay ms and the
+   pool bytes;
 7. ``oracle``: each QP family of the main path (TENSION2, post, pass 2 of
    the path QP) and the TENSION QP, rebuilt through the port's own stage
    functions on the batch and solved as the pipeline solves them (K3, K2),
-   then in dense form on the card in float64 to eps 1e-6 (``qp/admm.py``):
+   then in dense form on the card in float64 to eps 1e-6 (the compiled
+   ``qp/admm.solve_qp_batched``, held bit for bit to its eager twin on
+   pass 2's first 8 lanes and its rho-fixed ones, each key's graph and
+   pool printed):
    that optimum x* is held to the NumPy oracle (``qp/oracle.py``) on 2
    lanes of each lane class, and every lane the kernels' solver reports
    converged is held to x* (feasibility and cost gap, ``certify``); the
@@ -126,7 +148,8 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    3 cycles;
 9. ``cli``: ``cli.main(["--synthetic", "--profile", "--verbose-qp",
    "--batch", "256"])`` on the card (counted), which must print a
-   succeeded solve, the stage times, a converged trace and 256/256 ok,
+   succeeded solve, the stage times under the JAX package's names in its
+   order, a converged trace and 256/256 ok,
    and the walkthrough ``examples/quickstart_torch.py`` on the card;
 10. ``pscan``: one solve of 32 scenarios with the plain rounds and the
    parallel-prefix solve, ``QPSettings(fused_rounds=False, pscan=True)``,
@@ -181,7 +204,8 @@ from tpu_pathopt_torch.smoothing.post_smooth import build_post_structured
 from tpu_pathopt_torch.smoothing.tension import build_tension_qp_blocks
 from tpu_pathopt_torch.smoothing.tension2 import (build_tension2_qp,
                                                   build_tension2_structured)
-from tpu_pathopt_torch.solver import assembly, fused_rounds
+from tpu_pathopt_torch.solver import assembly, fused_rounds, path_solver
+from tpu_pathopt_torch import torchutil
 from tpu_pathopt_torch.torchutil import tree_map
 
 BATCH = 256
@@ -1079,7 +1103,8 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
 def drive_replan(gm, scs, cfg, device="cuda") -> dict:
     """replan_stream on the batch, warm and cold: a 1-cycle stream of each
     to warm up, then REPLAN_CYCLES cycles of each, its kernel launches
-    counted; and one solve_batch_profiled."""
+    counted; and solve_batch_profiled's compiled stages
+    (:func:`profiled_stages`)."""
     streams, launches = {}, {}
     for mode in ("warm", "cold"):
         use_warm = mode == "warm"
@@ -1091,15 +1116,16 @@ def drive_replan(gm, scs, cfg, device="cuda") -> dict:
             use_warm=use_warm, device=device))
         kernels.sync_counts()
         launches[mode] = dict(kernels.launches)
-    rec = profiling.TimeRecorder("one solve")
-    pipeline.solve_batch_profiled(gm, scs, cfg, recorder=rec, device=device)
     w, c = streams["warm"], streams["cold"]
     report = dict(phase="replan", batch=len(scs.n_raw), advance_ds=1.0,
                   cycles=REPLAN_CYCLES, warm=w, cold=c,
                   iters_rest_warm_over_cold=w["mean_iters_rest"]
                   / c["mean_iters_rest"], launches=launches,
-                  profiled_stage_ms=rec.stage_ms())
+                  **profiled_stages(gm, scs, cfg, device))
     emit(report)
+    if report["profiled_faults"]:
+        raise AssertionError("profiled stages: "
+                             + "; ".join(report["profiled_faults"]))
     for mode, st in streams.items():
         if st["n_ok"] != st["n_total"]:
             raise AssertionError(f"replan {mode}: {st['n_ok']} of "
@@ -1108,6 +1134,77 @@ def drive_replan(gm, scs, cfg, device="cuda") -> dict:
         raise AssertionError("replan: the warm cycles iterate more than the "
                              "cold ones")
     return report
+
+
+# The stages solve_batch_profiled records, under the JAX package's names
+# (tpu_pathopt/pipeline.py), and each stage key's conditional nodes: a WHILE
+# and an IF node for each QP solve of the stage.
+PROFILED_STAGES = {"prep": 0, "smooth": 2, "corridor": 0, "post_smooth": 2,
+                   "bounds": 0, "path_qp": 4, "finalize": 0}
+
+
+def profiled_stages(gm, scs, cfg, device="cuda") -> dict:
+    """solve_batch_profiled, each stage a compiled call of its own
+    (``pipeline.STAGES``): one untimed call that captures the stage keys,
+    then a recorded call (``profiled_stage_ms``: each stage's replay and
+    the waits around it), beside the eager stage times of the same
+    recorder around solve_batch (``eager_stage_ms``) and the sum of the
+    stages beside one solve_batch_jit replay; a call with ``stats``, its
+    result bit for bit solve_batch's and its rounds equal; and a call under
+    :class:`HostReads`. Each stage key: one graph, its conditional nodes
+    (PROFILED_STAGES), capture s and pool bytes."""
+    pipeline.STAGES.clear()
+    t0 = time.perf_counter()
+    pipeline.solve_batch_profiled(gm, scs, cfg, recorder=profiling.
+                                  TimeRecorder("capture"), device=device)
+    first_s = time.perf_counter() - t0
+    rec = profiling.TimeRecorder("profiled")
+    pipeline.solve_batch_profiled(gm, scs, cfg, recorder=rec, device=device)
+    eager_rec = profiling.TimeRecorder("eager")
+    want_stats = {}
+    want = pipeline.solve_batch(gm, scs, cfg, device=device,
+                                stats=want_stats,
+                                hook=lambda n: eager_rec.record(
+                                    n, block_on=gm))
+    stats = {}
+    got = pipeline.solve_batch_profiled(gm, scs, cfg, recorder=profiling.
+                                        TimeRecorder("stats"),
+                                        device=device, stats=stats)
+    _, reads = host_reads(lambda: pipeline.solve_batch_profiled(
+        gm, scs, cfg, recorder=profiling.TimeRecorder("reads"),
+        device=device))
+    pipeline.solve_batch_jit(gm, scs, cfg, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    pipeline.solve_batch_jit(gm, scs, cfg, device=device)
+    sync(device)
+    jit_ms = 1e3 * (time.perf_counter() - t0)
+    stage_ms = rec.stage_ms()
+    keys = {key[0][0]: graph_report(segs)
+            for key, segs in pipeline.STAGES.entries.items()}
+    faults = []
+    if list(stage_ms) != list(PROFILED_STAGES) or list(keys) != list(
+            PROFILED_STAGES):
+        faults.append(f"stages {list(stage_ms)}, keys {list(keys)}")
+    for name, graph in keys.items():
+        if graph["capture"] and (graph["graphs"] != 1 or graph[
+                "conditional_nodes"] != PROFILED_STAGES.get(name)):
+            faults.append(f"{name}: graph {graph}")
+    if device == "cuda" and reads:
+        faults.append(f"{reads} host reads in a profiled call")
+    unequal = bit_unequal(got, want)
+    if unequal or stats != want_stats:
+        faults.append(f"differs from solve_batch in {unequal}, rounds "
+                      f"{stats} != {want_stats}")
+    return dict(profiled_stage_ms=stage_ms,
+                profiled_stage_ms_sum=sum(stage_ms.values()),
+                profiled_first_call_s=first_s,
+                eager_stage_ms=eager_rec.stage_ms(),
+                eager_stage_ms_sum=sum(eager_rec.stage_ms().values()),
+                jit_replay_ms=jit_ms, profiled_stage_keys=keys,
+                profiled_host_reads_per_call=reads, profiled_rounds=stats,
+                eager_rounds=want_stats, profiled_unequal=unequal,
+                profiled_faults=faults, nvidia_smi=card_line())
 
 
 def drive_main_path(gm, scs, cfg, device="cuda",
@@ -1366,11 +1463,20 @@ def bit_unequal(got, want) -> list:
             bad.append(k)
             continue
         if a.dtype.is_floating_point:
-            a, b = a.contiguous().view(torch.int32), \
-                b.contiguous().view(torch.int32)
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                a.element_size()]
+            a, b = a.reshape(-1).view(bits), b.reshape(-1).view(bits)
         if not torch.equal(a, b):
             bad.append(k)
     return bad
+
+
+def without_rounds(sol):
+    """A solution without its round count (an int eager, a device tensor
+    from a compiled call; the rounds are compared on their own), or a trace
+    as it is."""
+    return (dataclasses.replace(sol, rounds=0)
+            if dataclasses.is_dataclass(sol) else sol)
 
 
 def last_segments():
@@ -1696,6 +1802,158 @@ def drive_compiled(gm, scs, cfg, gm_long, scs_long, eager: dict,
     return out
 
 
+SOLVER_LANES = 4          # lanes of the scalar path solver and the traces
+SOLVER_TRACE_ROUNDS = 8
+
+
+def solver_cases(gm, scs, cfg) -> dict:
+    """The seven compiled standalone solvers on the oracle families' own
+    QPs (rebuilt through the stage functions, as ``qp_families`` builds
+    them): run -> (solver, args, kwargs, conditional nodes of its graph,
+    kernels it must launch). A solve with a refactor has a WHILE and an
+    IF node, the scalar path solver (a select each round) a WHILE node;
+    a trace's fixed rounds are a WHILE node on a device counter, the dense
+    trace's refactor an IF node in it. The block-banded solver on TENSION2
+    (K1, K3 at (4, 3)) and post (K3 at (3, 3)); the batched path solver on
+    pass 2,
+    warm-started from pass 1 as the pipeline starts it (K1, K2); the dense
+    batched solver on the post QPs in float64 at the oracle's settings and
+    on the dense builder's TENSION2 QPs in float32; the dense scalar
+    solver and its trace on one lane; the scalar path solver and its trace
+    on SOLVER_LANES lanes of pass 1."""
+    st = cfg.qp_settings()
+    prep, cor, geo, sol1, _ = stages(gm, scs, cfg)
+    _, xg, yg, sg, ang, kg, n_seg = prep
+    t2 = build_tension2_structured(xg, yg, ang, kg, sg, n_seg, cfg)
+    post = build_post_structured(cor.layers_s, cor.lower, cor.upper,
+                                 cor.vehicle_l, cor.n_layers, cfg)
+    post32 = structured.to_dense(post)
+    post64 = tuple(a.double() for a in post32)
+    few = tree_map(lambda a: a[:SOLVER_LANES],
+                   pipeline.build_path_qp(scs, geo, cfg))
+    lane0 = lambda dense: tuple(a[0] for a in dense)  # noqa: E731
+    k13 = ("fused_factor", "fused_structured_round")
+    trace = dict(settings=st, n_rounds=SOLVER_TRACE_ROUNDS)
+    return {
+        "structured_tension2": (structured.solve_structured_batched, (t2,),
+                                dict(settings=st), 2, k13),
+        "structured_post": (structured.solve_structured_batched, (post,),
+                            dict(settings=st), 2, k13),
+        "path_batched_pass2": (
+            path_solver.solve_path_qp_batched,
+            (pipeline.build_path_qp(scs, geo, cfg, sol1=sol1),),
+            dict(v0=sol1.v, y0_knot=sol1.y_knot, y0_end=sol1.y_end,
+                 settings=st, rho0=sol1.rho_bar), 2,
+            ("fused_factor", "fused_admm_round")),
+        "dense_batched_f64_post": (admm.solve_qp_batched, post64,
+                                   dict(settings=ORACLE_SETTINGS), 2, ()),
+        "dense_batched_f32_tension2": (
+            admm.solve_qp_batched,
+            build_tension2_qp(xg, yg, ang, kg, sg, n_seg, cfg),
+            dict(settings=QPSettings()), 2, ()),
+        "dense_scalar_f64": (admm.solve_qp, lane0(post64),
+                             dict(settings=ORACLE_SETTINGS), 2, ()),
+        "dense_scalar_f32": (admm.solve_qp, lane0(post32),
+                             dict(settings=st), 2, ()),
+        "dense_trace_f64": (admm.trace_rounds, lane0(post64), trace, 2,
+                            ()),
+        "path_scalar": (path_solver.solve_path_qp, (few,),
+                        dict(settings=st, rho0=st.rho_bar_path), 1, ()),
+        "path_trace": (path_solver.trace_path_rounds, (few,),
+                       dict(trace, rho0=st.rho_bar_path), 1, ()),
+    }
+
+
+def solver_run(name, fn, args, kw, nodes, needs, device="cuda") -> dict:
+    """One compiled standalone solver against its eager twin
+    (``<name>_eager``) on the same inputs: the eager call, counted and
+    timed; the first compiled call (warm-up, capture, replay) timed; then
+    REPEATS replays, the first counted (rounds from the device's tally,
+    launches by key), and one more under :class:`HostReads`. Every field
+    of the first and the last replay bit for bit the eager call's, one
+    graph with ``nodes`` conditional nodes, no host read in a call, the
+    rounds and the launches by key the eager call's, ``needs`` launched."""
+    eager = getattr(sys.modules[fn.__module__], fn.__name__ + "_eager")
+    kernels.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    want = eager(*args, **kw)
+    sync(device)
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    want_shape = dict(kernels.shape_launches)
+    want_rounds = (want.rounds if dataclasses.is_dataclass(want)
+                   else kw["n_rounds"])
+    t0 = time.perf_counter()
+    first = fn(*args, **kw)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    segs = last_solver_segments()
+    replay = []
+    for i in range(REPEATS):
+        if i == 0:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = fn(*args, **kw)
+        sync(device)
+        replay.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            rounds = segs.sync()["qp"]
+            by_shape = dict(kernels.shape_launches)
+            launches = dict(kernels.launches)
+    _, reads = host_reads(lambda: fn(*args, **kw))
+    graph = graph_report(segs)
+    lead = torchutil.tree_leaves(args)[0]
+    report = dict(
+        phase="solvers", run=name, solver=fn.__name__,
+        dtype=str(lead.dtype).replace("torch.", ""), shape=list(lead.shape),
+        eager_ms=eager_ms,
+        first_call_s=first_s, replay_ms_runs=replay,
+        replay_ms=statistics.median(replay), **graph,
+        expected_conditional_nodes=nodes, host_reads_per_call=reads,
+        rounds=rounds, eager_rounds=want_rounds, launches=launches,
+        shape_launches=by_shape,
+        launches_equal_eager=by_shape == want_shape,
+        unequal_first=bit_unequal(without_rounds(first),
+                                  without_rounds(want)),
+        unequal_replay=bit_unequal(without_rounds(got),
+                                   without_rounds(want)),
+        nvidia_smi=card_line())
+    emit(report)
+    bad = []
+    if report["unequal_first"] or report["unequal_replay"]:
+        bad.append(f"differs from eager in {report['unequal_first']} / "
+                   f"{report['unequal_replay']}")
+    if graph["capture"] and (graph["graphs"] != 1
+                             or graph["conditional_nodes"] != nodes):
+        bad.append(f"graph {graph}, {nodes} conditional nodes expected")
+    if graph["capture"] and reads:
+        bad.append(f"{reads} host reads inside the call")
+    if rounds != want_rounds:
+        bad.append(f"rounds {rounds} != eager {want_rounds}")
+    if by_shape != want_shape:
+        bad.append(f"launches {by_shape} != eager {want_shape}")
+    idle = [k for k in needs if device == "cuda" and not launches.get(k)]
+    if idle:
+        bad.append(f"no {idle} on replay")
+    if bad:
+        raise AssertionError(f"solvers {name}: " + "; ".join(bad))
+    return report
+
+
+def drive_solvers(gm, scs, cfg, device="cuda") -> dict:
+    """The seven compiled standalone solvers (``solver_cases``) each held
+    to its eager twin (``solver_run``), the solver cache emptied after each
+    so that its pool is freed."""
+    if device == "cuda":
+        kernels.require_conditional_nodes()
+    torchutil.SOLVERS.clear()
+    out = {}
+    for name, case in solver_cases(gm, scs, cfg).items():
+        out[name] = solver_run(name, *case, device=device)
+        torchutil.SOLVERS.clear()
+    return out
+
+
 def check_golden(cfg, device="cuda"):
     """The card's results on the fixtures' 8 scenarios against the JAX
     package's stored results, at golden.TOLERANCES (TENSION's l at
@@ -1871,19 +2129,62 @@ def qp_families(gm, scs, cfg) -> dict:
     return {k: out[k] for k in FEASIBILITY if k in out}, geo[5], t2_dense
 
 
-def optimum(dense):
+def optimum(dense, solve=admm.solve_qp_batched):
     """x* of each QP of the dense float64 batch: the adaptive-rho solve at
     ORACLE_SETTINGS, and the lanes it leaves unconverged solved again at
-    ORACLE_FIXED. Returns (its QPSolution, the lanes solved again)."""
-    opt = admm.solve_qp_batched(*dense, settings=ORACLE_SETTINGS)
+    ORACLE_FIXED, both through ``solve`` (the compiled solver; its eager
+    twin for :func:`oracle_compiled_vs_eager`). Returns (its QPSolution,
+    the lanes solved again)."""
+    opt = solve(*dense, settings=ORACLE_SETTINGS)
     redo = (~opt.converged).nonzero()[:, 0]
     if len(redo):
-        fix = admm.solve_qp_batched(*(a[redo] for a in dense),
-                                    settings=ORACLE_FIXED)
+        fix = solve(*(a[redo] for a in dense), settings=ORACLE_FIXED)
         opt.x[redo] = fix.x
         opt.converged[redo] = fix.converged
         opt.iters[redo] += fix.iters
     return opt, redo.tolist()
+
+
+ORACLE_EAGER_LANES = 8   # the first lanes held compiled against eager
+
+
+def last_solver_segments():
+    """The solver cache's entry used last (its Segments)."""
+    return next(reversed(torchutil.SOLVERS.entries.values()))
+
+
+def solver_graphs() -> list:
+    """Every key of the solver cache: its solver, the leading size of its
+    first input tensor, and its graph (:func:`graph_report`)."""
+    return [dict(solver=key[0][0],
+                 batch=torchutil.tree_leaves(segs.static_in)[0].shape[0],
+                 **graph_report(segs))
+            for key, segs in torchutil.SOLVERS.entries.items()]
+
+
+def oracle_compiled_vs_eager(dense, refixed) -> dict:
+    """The float64 optimum of a subset of the batch's lanes, compiled (the
+    yardstick's own solver) against its eager twin: the first
+    ORACLE_EAGER_LANES lanes and every lane the whole batch's solve had to
+    fix at rho 1 (``refixed``), so the fixed re-solve runs in both. Every
+    field bit for bit, the same lanes fixed. It holds the compiled dense
+    solver on the oracle's own inputs without a second eager solve of the
+    whole batch."""
+    lanes = sorted(set(range(ORACLE_EAGER_LANES)) | set(refixed))
+    sub = tuple(a[lanes] for a in dense)
+    times, outs = {}, {}
+    for mode, solve in (("eager", admm.solve_qp_batched_eager),
+                        ("compiled", admm.solve_qp_batched)):
+        sync(sub[0].device.type)
+        t0 = time.perf_counter()
+        outs[mode] = optimum(sub, solve)
+        outs[mode][0].iters.sum().item()
+        times[mode] = time.perf_counter() - t0
+    (want, want_fix), (got, got_fix) = outs["eager"], outs["compiled"]
+    unequal = bit_unequal(without_rounds(got), without_rounds(want))
+    return dict(lanes=lanes, lanes_rho_fixed=got_fix, eager_seconds=times[
+        "eager"], compiled_seconds=times["compiled"], unequal=unequal,
+        held=not unequal and got_fix == want_fix)
 
 
 def numpy_oracle(job):
@@ -1932,6 +2233,7 @@ def drive_oracle(gm, scs, cfg, device="cuda") -> dict:
         opt, refixed = optimum(dense)
         opt.iters.sum().item()
         secs = time.perf_counter() - t0
+        graphs = solver_graphs()
         cert = certify(name, dense, x, opt.x)
         ok = certified(cert, conv)
         conv_f = conv.double()
@@ -1965,6 +2267,13 @@ def drive_oracle(gm, scs, cfg, device="cuda") -> dict:
                                                  n_valid)
             if not reports[name]["fault"]["caught"]:
                 failed.append("path fault not caught")
+            reports[name]["compiled_vs_eager"] = oracle_compiled_vs_eager(
+                dense, refixed)
+            if not reports[name]["compiled_vs_eager"]["held"]:
+                failed.append("path compiled != eager")
+        # The compiled keys' graphs and pools, freed before the next family.
+        reports[name]["f64_keys"] = graphs
+        torchutil.SOLVERS.clear()
         del dense, opt
 
     t0 = time.perf_counter()
@@ -2024,6 +2333,8 @@ def drive_long_oracle(gm, scs, cfg, device="cuda") -> dict:
     opt, refixed = optimum(dense)
     opt.iters.sum().item()
     secs = time.perf_counter() - t0
+    graphs = solver_graphs()
+    torchutil.SOLVERS.clear()
     conv = sol2.converged
     cert = certify("path_long", dense, sol2.v.flatten(1), opt.x)
     ok = certified(cert, conv)
@@ -2034,6 +2345,7 @@ def drive_long_oracle(gm, scs, cfg, device="cuda") -> dict:
         lanes_checked=int(conv.sum()), f64_converged=int(
             opt.converged.sum()), f64_seconds=secs,
         f64_iters_max=int(opt.iters.max()), f64_lanes_rho_fixed=refixed,
+        f64_keys=graphs,
         worst_violation=float((cert["violation"] * conv_f).max()),
         worst_violation_over_bound=float(
             (cert["violation"] / cert["feas_bound"] * conv_f).max()),
@@ -2224,10 +2536,13 @@ def drive_cli(extra=(), batch: int = BATCH) -> dict:
     text = buf.getvalue()
     lines = text.splitlines()
     need = ["solve: ok=True", f"batch {batch}: {batch}/{batch} ok",
-            "[pipeline] total"] + [f"  {st}: " for st in (
-                "prep", "smooth", "corridor", "post_smooth", "geometry",
-                "path_qp", "finalize")]
+            "[pipeline] total"] + [f"  {st}: " for st in PROFILED_STAGES]
     missing = [n for n in need if n not in text]
+    at = [i for i, ln in enumerate(lines) if ln.startswith("[pipeline]")]
+    names = [ln.split(":")[0].strip() for ln in
+             lines[at[0] + 1:at[0] + 1 + len(PROFILED_STAGES)]] if at else []
+    if names != list(PROFILED_STAGES) or len(at) != 1:
+        missing.append(f"the JAX package's stage names in order: {names}")
     converged = any(ln.endswith("converged") for ln in lines)
     walk = drive_walkthrough()
     emit(dict(phase="cli", argv=argv, seconds=secs, launches=launches,
@@ -2494,6 +2809,7 @@ def main() -> int:
                                    results=eager)
     comp = drive_compiled(gm, scs, cfg, gm_long, scs_long, eager)
     del eager
+    drive_solvers(gm, scs, cfg)
     drive_oracle(gm, scs, cfg)
     drive_long_oracle(gm_long, scs_long, cfg_long)
     drive_dist(gm, scs, cfg)

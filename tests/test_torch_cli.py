@@ -30,6 +30,11 @@ from tpu_pathopt_torch.solver import assembly, path_solver
 
 N = tq.N
 CHECK = QPSettings().check_every
+# The stages the JAX package's solve_batch_profiled records, in order
+# (tpu_pathopt/pipeline.py; tests/test_torch_profiled.py holds the port's
+# recorder to the JAX one's on the same inputs).
+STAGE_NAMES = ("prep", "smooth", "corridor", "post_smooth", "bounds",
+               "path_qp", "finalize")
 
 
 def run_cli(argv):
@@ -57,10 +62,22 @@ def test_cli_solves_the_demo_and_writes_a_png(cli_run):
 
 def test_cli_profile_prints_the_stage_times(cli_run):
     text, _ = cli_run
-    for stage in ("prep", "smooth", "corridor", "post_smooth", "geometry",
-                  "path_qp", "finalize"):
+    for stage in STAGE_NAMES:
         assert f"  {stage}: " in text, stage
     assert "[pipeline] total" in text
+
+
+def test_cli_profile_names_the_jax_stages_in_order(cli_run):
+    """--profile records each stage under the JAX package's name, in its
+    order, after one untimed call that compiles the stages."""
+    text, _ = cli_run
+    lines = text.splitlines()
+    i = next(k for k, ln in enumerate(lines)
+             if ln.startswith("[pipeline] total"))
+    names = [ln.split(":")[0].strip()
+             for ln in lines[i + 1:i + 1 + len(STAGE_NAMES)]]
+    assert names == list(STAGE_NAMES)
+    assert text.count("[pipeline] total") == 1
 
 
 def test_cli_verbose_qp_prints_a_converged_trace(cli_run):

@@ -376,7 +376,7 @@ def test_bad_collision_rows_raise_eager_and_at_the_deferred_read():
     bad = dataclasses.replace(qp, coll_coef=cc)
     st = QPSettings(max_iter=100)
     with pytest.raises(ValueError, match="K2 takes collision rows"):
-        path_solver.solve_path_qp_batched(bad, settings=st)
+        path_solver.solve_path_qp_batched_eager(bad, settings=st)
 
     def program(drv, qp):
         run = drv("setup", lambda q: path_solver.path_setup(q, settings=st),
@@ -392,7 +392,7 @@ def test_bad_collision_rows_raise_eager_and_at_the_deferred_read():
     good = segs.call(program, (qp,))
     kernels.sync_counts()
     assert not kernels._pending
-    want = path_solver.solve_path_qp_batched(qp, settings=st)
+    want = path_solver.solve_path_qp_batched_eager(qp, settings=st)
     assert same((good.v, good.converged), (want.v, want.converged))
     assert bool(good.converged.any())
     kernels.reset_launches()

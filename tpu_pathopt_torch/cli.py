@@ -110,7 +110,7 @@ def main(argv=None):
     from tpu_pathopt_torch import diagnostics, pipeline, profiling, viz
     from tpu_pathopt_torch.config import PlannerConfig
     from tpu_pathopt_torch.solver.path_solver import trace_path_rounds
-    from tpu_pathopt_torch.torchutil import resolve_device, to_device, \
+    from tpu_pathopt_torch.torchutil import compiled, resolve_device, \
         tree_map
 
     dev = resolve_device("cpu" if args.cpu else None)
@@ -160,6 +160,8 @@ def main(argv=None):
     print(f"timing: first{build} {t_first:.1f}s, warm {t_warm * 1e3:.1f}ms")
     scs1 = tree_map(lambda a: a[None], sc)
     if args.profile:
+        # Each stage is a compiled call: the first call captures them.
+        pipeline.solve_batch_profiled(gm, scs1, cfg, device=dev)
         rec = profiling.TimeRecorder("pipeline")
         pipeline.solve_batch_profiled(gm, scs1, cfg, recorder=rec,
                                       device=dev)
@@ -169,8 +171,10 @@ def main(argv=None):
         # surface OSQP's verbose=true gives the reference
         # (base_solver.cpp:59), from the scalar round body.
         st = cfg.qp_settings()
-        geo_out = pipeline.run_to_geometry(to_device(gm, dev), scs1, cfg,
-                                           st)[0]
+        geo_out, _ = compiled(
+            pipeline.STAGES, ("run_to_geometry", cfg, st),
+            lambda drv, gm_, scs_: pipeline.run_to_geometry(
+                gm_, scs_, cfg, st, drv=drv)[0], (gm, scs1), dev)
         qp1 = pipeline.build_path_qp(scs1, geo_out, cfg)
         # At most 40 rounds (1000 iterations covers every converging
         # scenario of the adversarial batch), and the trace says when the

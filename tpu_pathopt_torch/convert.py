@@ -115,6 +115,8 @@ def dense_qp(qp, device=None) -> tuple:
 
 def qp_solution(d: dict, device=None) -> admm.QPSolution:
     """``admm.QPSolution`` from the fields of a JAX ``QPSolution``, each of
-    its own precision."""
+    its own precision (the port's ``rounds``, which the JAX solution does
+    not carry, left at its default)."""
     return admm.QPSolution(**{f.name: _exact(d[f.name], device)
-                              for f in dataclasses.fields(admm.QPSolution)})
+                              for f in dataclasses.fields(admm.QPSolution)
+                              if f.name in d})

@@ -6,14 +6,14 @@ scenario batch instead, one process per GPU: NCCL between processes on
 ``cuda``, gloo on the CPU. A :class:`Mesh` names the process group and this
 rank's device, so the JAX package's signatures keep their ``mesh``
 argument. There are no global arrays: every rank is handed the same global
-batch, solves its own rows of it (:func:`shard_rows`) through
-``pipeline.solve_batch`` (K1-K4 on its GPU), and returns the results of
-those rows; the fleet statistics are ``all_reduce``d, so every rank holds
-the same :class:`FleetStats`.
+batch, solves its own rows of it (:func:`shard_rows`) through the
+compiled ``pipeline.solve_batch_jit`` (K1-K4 on its GPU; the cached
+:func:`_sharded_solver`, the JAX package's jitted shard_map), and returns
+the results of those rows; the fleet statistics are ``all_reduce``d, so
+every rank holds the same :class:`FleetStats`.
 
-The JAX package's ``pallas_may_engage`` and its cache of jitted sharded
-solvers have no counterpart: PyTorch runs eagerly, so there is nothing to
-trace or compile per mesh, and the kernels run on every rank's GPU alike.
+The JAX package's ``pallas_may_engage`` has no counterpart: the kernels
+run on every rank's GPU alike.
 """
 
 from __future__ import annotations

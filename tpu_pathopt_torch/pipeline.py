@@ -11,12 +11,12 @@ Every stage works on the whole scenario batch at once (the JAX package's
 ``vmap`` written out as a leading batch axis). Stage failures follow the
 reference's abort semantics but are reported as flags on the result.
 
-Entry points: :func:`solve_batch`, :func:`solve`, :func:`solve_batch_warm`
-(one replanning solve, warm-started from a :class:`QPWarmStart`) and
-:func:`solve_batch_profiled` (per-stage timing), which issue every
-operation from the host; and the compiled :func:`solve_batch_jit` and
-:func:`solve_jit`, which replay the CUDA graph captured on their first
-call.
+Entry points: :func:`solve_batch`, :func:`solve` and
+:func:`solve_batch_warm` (one replanning solve, warm-started from a
+:class:`QPWarmStart`), which issue every operation from the host; the
+compiled :func:`solve_batch_jit` and :func:`solve_jit`, which replay the
+CUDA graph captured on their first call; and :func:`solve_batch_profiled`
+(per-stage timing), each stage a compiled call of its own.
 Each runs on ``cuda`` unless the caller passes another device; with no GPU
 and no explicit device it raises.
 """
@@ -42,8 +42,9 @@ from tpu_pathopt_torch.smoothing.tension2 import tension2_smooth_batched
 from tpu_pathopt_torch.solver.assembly import assemble_path_qp
 from tpu_pathopt_torch.solver.path_solver import (path_setup, path_solution,
                                                   solve_path)
-from tpu_pathopt_torch.torchutil import (EAGER, SegmentCache, resolve_device,
-                                         signature, take, to_device, tree_map)
+from tpu_pathopt_torch.torchutil import (EAGER, SegmentCache, compiled,
+                                         resolve_device, take, to_device,
+                                         tree_map)
 
 
 @dataclasses.dataclass
@@ -384,7 +385,9 @@ def run_to_geometry(gm: maps.GridMap, scs: Scenario, config: PlannerConfig,
                     hook=None, drv=EAGER):
     """The stage chain up through ``stage_geometry``. Returns
     ``(geo_out, (ok_input, ok_smooth, cor, ok_post))``. ``hook(name)``, if
-    given, is called before each stage."""
+    given, is called before each stage, with the names the JAX package's
+    ``solve_batch_profiled`` records (``bounds`` before the geometry
+    stage)."""
     mark = hook or (lambda name: None)
     mark("prep")
     prep_out = stage_prep(scs, config, drv)
@@ -394,7 +397,7 @@ def run_to_geometry(gm: maps.GridMap, scs: Scenario, config: PlannerConfig,
     xs2, ys2, cor = stage_corridor(gm, scs, smooth_out, config, drv)
     mark("post_smooth")
     l_post, ok_post = stage_post_smooth(cor, config, settings, stats, drv)
-    mark("geometry")
+    mark("bounds")
     geo_out = stage_geometry(gm, scs, xs2, ys2, cor, l_post, config, drv)
     return geo_out, (prep_out[0], smooth_out[4], cor, ok_post)
 
@@ -503,29 +506,71 @@ def solve_batch_warm(gm: maps.GridMap, scenarios: Scenario,
 def solve_batch_profiled(gm: maps.GridMap, scenarios: Scenario,
                          config: PlannerConfig,
                          settings: QPSettings | None = None,
-                         recorder=None, device=None) -> PathResult:
+                         recorder=None, device=None,
+                         stats: dict | None = None) -> PathResult:
     """:func:`solve_batch` with per-stage timing, the reference's
     TimeRecorder instrumentation (path_optimizer.cpp:41-69,
-    base_solver.cpp:57-93). ``recorder`` is a ``profiling.TimeRecorder``;
-    before each stage the device is synchronised, so a stage's time is the
-    device's time to finish it plus the host's time to issue it. Without a
-    recorder one is made and its times are logged. The same stages run on
-    the same inputs, so the result equals :func:`solve_batch`'s; the
-    synchronisations make the batch slower. It runs eagerly, stage by
-    stage, as the JAX package's does."""
+    base_solver.cpp:57-93). Each stage (prep, smooth, corridor,
+    post_smooth, the geometry stage under the JAX package's name
+    ``bounds``, path_qp, finalize) is its own compiled call, as the JAX
+    package jits each (``STAGES``, keyed by the stage, the config, the
+    settings and its inputs' signature; its inputs are the previous
+    stage's outputs): on CUDA one graph per stage and key, the QP stages'
+    rounds WHILE nodes with IF nodes around the refactors, captured on the
+    key's first call. ``recorder`` is a ``profiling.TimeRecorder``; before
+    each stage it waits for the device to finish the previous one, so a
+    stage's time is its replay on the device plus the host's launch and
+    the copies between stages, and a first call's times include the
+    capture. Without a recorder one is made and its times are logged. The
+    same stages run on the same inputs, so the result equals
+    :func:`solve_batch`'s bit for bit; the waits and copies between stages
+    make the batch slower than :func:`solve_batch_jit`. ``stats``, if
+    given, receives each QP's rounds as :func:`solve_batch` gives them,
+    read from the device after the call."""
     from tpu_pathopt_torch import profiling
+    if settings is None:
+        settings = config.qp_settings()
     dev = resolve_device(device)
-    gm = to_device(gm, dev)
+    _set_precision()
     rec = recorder if recorder is not None else profiling.TimeRecorder(
         "pipeline")
+    used = []
 
-    # Every stage runs on the map's device, in order on its current stream,
-    # so waiting for that device waits for the previous stage's outputs.
-    def hook(name):
-        rec.record(name, block_on=gm)
+    def stage(name, program, *inputs):
+        out, segs = compiled(STAGES, (name, config, settings), program,
+                             inputs, dev)
+        used.append(segs)
+        return out
 
-    result = _solve_batch_impl(gm, scenarios, config, settings, dev,
-                               hook=hook)
+    scs, cfg, st = scenarios, config, settings
+    rec.record("prep")
+    prep_out = stage("prep", lambda drv, scs: stage_prep(scs, cfg, drv), scs)
+    rec.record("smooth", block_on=prep_out)
+    smooth_out = stage("smooth", lambda drv, gm, prep_out: stage_smooth(
+        gm, prep_out, cfg, st, None, drv), gm, prep_out)
+    rec.record("corridor", block_on=smooth_out)
+    xs2, ys2, cor = stage("corridor", lambda drv, *a: stage_corridor(
+        *a, cfg, drv), gm, scs, smooth_out)
+    rec.record("post_smooth", block_on=cor)
+    l_post, ok_post = stage("post_smooth", lambda drv, cor: stage_post_smooth(
+        cor, cfg, st, None, drv), cor)
+    rec.record("bounds", block_on=l_post)
+    geo_out = stage("bounds", lambda drv, *a: stage_geometry(*a, cfg, drv),
+                    gm, scs, xs2, ys2, cor, l_post)
+    rec.record("path_qp", block_on=geo_out)
+    sol1, sol2 = stage("path_qp", lambda drv, scs, geo_out: stage_path_qp(
+        scs, geo_out, cfg, st, None, None, drv), scs, geo_out)
+    rec.record("finalize", block_on=(sol1, sol2))
+    oks = (prep_out[0], smooth_out[4], cor, ok_post)
+    finish = functools.partial(_finalize, config=cfg, return_warm=False,
+                               tail=None)
+    result = stage("finalize", lambda drv, *a: drv("finalize", finish, *a),
+                   scs, geo_out, oks, sol1, sol2)
+    rec.record("done", block_on=result)
+    if stats is not None:
+        for segs in used:
+            stats.update({f"{name}_rounds": n
+                          for name, n in segs.sync().items()})
     if recorder is None:
         rec.print_time()
     return result
@@ -562,6 +607,10 @@ def solve(gm: maps.GridMap, sc: Scenario, config: PlannerConfig,
 # ``kernels.sync_counts``): then one read after the call.
 
 COMPILED = SegmentCache(maxsize=16)
+# The compiled stages of :func:`solve_batch_profiled` (and the CLI's
+# ``run_to_geometry``): a cache of their own, so a profiled run never evicts
+# a key of ``COMPILED``.
+STAGES = SegmentCache(maxsize=16)
 
 
 def compiled_call(gm: maps.GridMap, scenarios: Scenario,
@@ -577,16 +626,12 @@ def compiled_call(gm: maps.GridMap, scenarios: Scenario,
     if settings is None:
         settings = config.qp_settings()
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     _set_precision()
-    inputs = (gm, scenarios, warm)
-    key = (config, settings, return_warm, tail_key, dev, signature(inputs))
-    segs = COMPILED.get(key, dev)
-    out = segs.call(lambda drv, gm_s, scs_s, warm_s: _pipeline(
-        drv, gm_s, scs_s, config, settings, None, None, warm_s, return_warm,
-        tail), inputs)
-    out = tree_map(torch.clone, out)
+    out, segs = compiled(
+        COMPILED, (config, settings, return_warm, tail_key),
+        lambda drv, gm_s, scs_s, warm_s: _pipeline(
+            drv, gm_s, scs_s, config, settings, None, None, warm_s,
+            return_warm, tail), (gm, scenarios, warm), dev)
     if stats is not None:
         stats.update({f"{name}_rounds": n
                       for name, n in segs.sync().items()})

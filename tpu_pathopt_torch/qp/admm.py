@@ -13,20 +13,31 @@ solver behind every QP in the reference, base_solver.cpp:80-88):
 :func:`solve_qp` solves one QP (Cholesky and two triangular solves an
 iteration); :func:`solve_qp_batched` a leading batch of them (one Cholesky
 and an explicit triangular inverse per rho update, so an iteration is two
-batched matvecs; converged lanes are frozen). :func:`trace_rounds` runs
-:func:`solve_qp`'s round body and records each round. The dtype and device
-follow the inputs (float32 or float64, CPU or CUDA); each round ends in a
-host read, the loop test. No entry point of the pipeline uses the dense
-solver: it is the yardstick the structured solvers are held to.
+batched matvecs; converged lanes are frozen; a refactor factors every lane
+and keeps the new factor where rho changed, as the JAX package does).
+:func:`trace_rounds` runs :func:`solve_qp`'s round body and records each
+round. The dtype and device follow the inputs (float32 or float64, CPU or
+CUDA).
+
+Each is a compiled call, as the JAX package jits them
+(``torchutil.compiled``): on CUDA one graph per static key, the rounds a
+WHILE node and the refactor an IF node in it (the trace: its rounds
+captured straight, each refactor an IF node), no host read inside a call.
+``<name>_eager`` runs the same program from the host, one read a round.
+No entry point of the pipeline uses the dense solver: it is the yardstick
+the structured solvers are held to, and the single-scenario smoothers'
+solver.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from tpu_pathopt_torch.torchutil import highest_precision
+from tpu_pathopt_torch.torchutil import (EAGER, SOLVERS, compiled,
+                                         highest_precision, write_row)
 
 INFTY = 1e20
 
@@ -65,6 +76,9 @@ class QPSolution:
     converged: torch.Tensor  # (...) bool
     pri_res: torch.Tensor
     dua_res: torch.Tensor
+    # Rounds run: an int on the eager path, a 0-d device tensor in a
+    # compiled call (read only after it).
+    rounds: int | torch.Tensor = 0
 
 
 def _amax(v):
@@ -169,79 +183,190 @@ def _rhs(st, x, z, y, qs, As, rho):
     return st.sigma * x - qs + (As.mT @ (rho * z - y)[..., None])[..., 0]
 
 
-# ------------------------------- one QP --------------------------------------
+# ------------------------------- the loop state -----------------------------
 
-def _setup_scalar(P, q, A, l, u, x0, y0, st):
-    """Scale the problem and build the initial carry (shared by the solver
-    and the iterate tracer, so both run the same code)."""
+@dataclasses.dataclass
+class DenseRun:
+    """One dense solve (or a batch) in flight: the problem and its scaled
+    form (read only) and the loop state, which the rounds and refactors
+    update in place. ``L`` is the Cholesky factor (one QP) or its explicit
+    inverse (a batch); ``flags`` is the round's loop test and refactor
+    gate: any QP still active, any QP whose rho changed."""
+    problem: tuple           # (P, q, A), unscaled
+    scaled: tuple            # (Ps, qs, As, D, E, c, ls, us, eq, loose)
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    rho: torch.Tensor
+    L: torch.Tensor
+    rho_bar: torch.Tensor
+    it: torch.Tensor
+    conv: torch.Tensor
+    pri: torch.Tensor
+    dua: torch.Tensor
+    need: torch.Tensor
+    flags: torch.Tensor
+
+
+def _round(run: DenseRun, st: QPSettings, solve) -> DenseRun:
+    """One check_every-iteration ADMM round, the residual check and the
+    adaptive-rho update; the refactor it asks for is :func:`_refactor`.
+    ``solve(L, rhs)`` applies the factor: one QP or a batch of them (the
+    QP axes lead, the variables last)."""
+    P, q, A = run.problem
+    Ps, qs, As, D, E, c, ls, us, eq, loose = run.scaled
+    conv = run.conv
+    x_n, z_n, y_n = run.x, run.z, run.y
+    for _ in range(st.check_every):
+        xt = solve(run.L, _rhs(st, x_n, z_n, y_n, qs, As, run.rho))
+        x_n, z_n, y_n = _relaxed_step(st, xt, x_n, z_n, y_n, As, run.rho,
+                                      ls, us)
+    # Freeze converged problems.
+    cv = conv[..., None]
+    x = torch.where(cv, run.x, x_n)
+    z = torch.where(cv, run.z, z_n)
+    y = torch.where(cv, run.y, y_n)
+    it = torch.where(conv, run.it, run.it + st.check_every)
+
+    pri_res, dua_res, n_pri, n_dua, ok = _residuals(
+        P, q, A, D * x, z / E, (E * y) / c[..., None], st)
+    conv_new = conv | ok
+    need, rho_bar = torch.zeros_like(conv), run.rho_bar
+    if st.adaptive_rho:
+        need, rho_bar = _rho_update(pri_res, dua_res, n_pri, n_dua, conv_new,
+                                    rho_bar)
+    flags = torch.stack([torch.any(~conv_new & (it < st.max_iter)),
+                         torch.any(need)])
+    return dataclasses.replace(
+        run, x=x, z=z, y=y, it=it, conv=conv_new, rho_bar=rho_bar, need=need,
+        pri=torch.where(conv, run.pri, pri_res),
+        dua=torch.where(conv, run.dua, dua_res), flags=flags)
+
+
+def _refactor(run: DenseRun, st: QPSettings, factor) -> DenseRun:
+    """Refactor at the adapted rho: ``factor`` over every QP, the new
+    factor and rho kept where rho changed (the JAX package's ``lax.cond``
+    body: no index of the QPs that need it, whose shape the data would
+    decide)."""
+    Ps, qs, As, D, E, c, ls, us, eq, loose = run.scaled
+    need = run.need
+    rho_new = _make_rho(run.rho_bar, eq, loose)
+    return dataclasses.replace(
+        run, rho=torch.where(need[..., None], rho_new, run.rho),
+        L=torch.where(need[..., None, None],
+                      factor(Ps, As, rho_new, st.sigma), run.L))
+
+
+def _setup(P, q, A, l, u, x0, y0, st: QPSettings, factor) -> DenseRun:
+    """Scale the problem (one QP or a batch) and build the state before
+    the first round; every state tensor is new, so the rounds may write
+    into it."""
     dt, dev = P.dtype, P.device
+    lead = P.shape[:-2]
     Ps, qs, As, D, E, c = _ruiz(P, q, A, st.scaling_iters)
     ls, us, eq, loose = _scale_bounds(l, u, E)
-    rho_bar0 = torch.tensor(st.rho_bar, dtype=dt, device=dev)
-    rho0 = _make_rho(rho_bar0, eq, loose)
-    L0 = _factor(Ps, As, rho0, st.sigma)
-    x = torch.zeros(P.shape[-1], dtype=dt, device=dev) if x0 is None \
-        else x0 / D
-    y = torch.zeros(A.shape[-2], dtype=dt, device=dev) if y0 is None \
-        else y0 * E / c
-    z = As @ x
-    scaled = (Ps, qs, As, D, E, c, ls, us, eq, loose)
-    inf = torch.tensor(torch.inf, dtype=dt, device=dev)
-    init = (x, z, y, rho0, L0, rho_bar0,
-            torch.tensor(0, dtype=torch.long, device=dev),
-            torch.tensor(False, device=dev), inf, inf)
-    return scaled, init
+    rho_bar = torch.full(lead, st.rho_bar, dtype=dt, device=dev)
+    rho = _make_rho(rho_bar, eq, loose)
+    L = factor(Ps, As, rho, st.sigma)
+    x = torch.zeros(lead + P.shape[-1:], dtype=dt, device=dev) \
+        if x0 is None else x0 / D
+    y = torch.zeros(lead + A.shape[-2:-1], dtype=dt, device=dev) \
+        if y0 is None else y0 * E / c[..., None]
+    z = (As @ x[..., None])[..., 0]
+    return DenseRun(
+        problem=(P, q, A), scaled=(Ps, qs, As, D, E, c, ls, us, eq, loose),
+        x=x, z=z, y=y, rho=rho, L=L, rho_bar=rho_bar,
+        it=torch.zeros(lead, dtype=torch.long, device=dev),
+        conv=torch.zeros(lead, dtype=torch.bool, device=dev),
+        pri=torch.full(lead, torch.inf, dtype=dt, device=dev),
+        dua=torch.full(lead, torch.inf, dtype=dt, device=dev),
+        need=torch.zeros(lead, dtype=torch.bool, device=dev),
+        flags=torch.ones((2,), dtype=torch.bool, device=dev))
 
 
-def _make_scalar_round(P, q, A, scaled, st):
-    """One check_every-iteration ADMM round, the residual check and the
-    adaptive-rho update (the loop body of :func:`solve_qp`)."""
-    Ps, qs, As, D, E, c, ls, us, eq, loose = scaled
+def _unscaled(run: DenseRun, rounds) -> QPSolution:
+    D, E, c = run.scaled[3:6]
+    return QPSolution(x=D * run.x, y=(E * run.y) / c[..., None],
+                      z=run.z / E, iters=run.it, converged=run.conv,
+                      pri_res=run.pri, dua_res=run.dua, rounds=rounds)
 
-    def admm_round(carry):
-        x, z, y, rho, L, rho_bar, it, conv, pri, dua = carry
-        x_n, z_n, y_n = x, z, y
-        for _ in range(st.check_every):
-            xt = _chol_solve(L, _rhs(st, x_n, z_n, y_n, qs, As, rho))
-            x_n, z_n, y_n = _relaxed_step(st, xt, x_n, z_n, y_n, As, rho,
-                                          ls, us)
-        # Freeze a converged problem.
-        x = torch.where(conv, x, x_n)
-        z = torch.where(conv, z, z_n)
-        y = torch.where(conv, y, y_n)
-        it = torch.where(conv, it, it + st.check_every)
 
-        pri_res, dua_res, n_pri, n_dua, ok = _residuals(
-            P, q, A, D * x, z / E, (E * y) / c, st)
-        conv_new = conv | ok
-        if st.adaptive_rho:
-            need, rho_bar_new = _rho_update(pri_res, dua_res, n_pri, n_dua,
-                                            conv_new, rho_bar)
-            if bool(need):
-                rho = _make_rho(rho_bar_new, eq, loose)
-                L = _factor(Ps, As, rho, st.sigma)
-            rho_bar = rho_bar_new
-        return (x, z, y, rho, L, rho_bar, it, conv_new,
-                torch.where(conv, pri, pri_res),
-                torch.where(conv, dua, dua_res))
+def _solve(drv, P, q, A, l, u, x0, y0, settings: QPSettings, solve,
+           factor) -> QPSolution:
+    """The program of a dense solve: setup, then the rounds through
+    ``drv.loop`` (the JAX package's ``lax.while_loop`` with a ``lax.cond``
+    around the refactor)."""
+    st = settings
+    with highest_precision():
+        run = drv("setup", functools.partial(_setup, st=st, factor=factor),
+                  P, q, A, l, u, x0, y0)
+        run, rounds = drv.loop(
+            "qp", run, functools.partial(_round, st=st, solve=solve),
+            functools.partial(_refactor, st=st, factor=factor),
+            st.max_iter > 0)
+        return drv("solution", _unscaled, run, rounds)
 
-    return admm_round
+
+# ------------------------------- one QP --------------------------------------
+
+def _scalar_program(drv, P, q, A, l, u, x0, y0, settings):
+    return _solve(drv, P, q, A, l, u, x0, y0, settings, _chol_solve, _factor)
+
+
+def solve_qp_eager(P, q, A, l, u, x0=None, y0=None,
+                   settings: QPSettings = QPSettings()) -> QPSolution:
+    """:func:`solve_qp` issued from the host, one read a round."""
+    return _scalar_program(EAGER, P, q, A, l, u, x0, y0, settings)
 
 
 def solve_qp(P, q, A, l, u, x0=None, y0=None,
              settings: QPSettings = QPSettings()) -> QPSolution:
     """Solve one QP: P (nv, nv), q (nv,), A (nc, nv), l and u (nc,), on
-    their device and in their dtype; ``x0``/``y0`` warm-start it."""
+    their device and in their dtype; ``x0``/``y0`` warm-start it. A
+    compiled call (see the module), bit for bit :func:`solve_qp_eager`."""
+    return compiled(SOLVERS, ("solve_qp", settings), functools.partial(
+        _scalar_program, settings=settings), (P, q, A, l, u, x0, y0),
+        P.device)[0]
+
+
+_TRACE_KEYS = ("x", "z", "y", "rho_bar", "pri_res", "dua_res")
+
+
+def _trace_program(drv, P, q, A, l, u, x0, y0, settings, n_rounds):
+    """Exactly ``n_rounds`` rounds of :func:`solve_qp`'s program (the
+    JAX package's ``lax.scan``), each recorded into its row of buffers
+    allocated before the first."""
     st = settings
     with highest_precision():
-        scaled, carry = _setup_scalar(P, q, A, l, u, x0, y0, st)
-        D, E, c = scaled[3], scaled[4], scaled[5]
-        admm_round = _make_scalar_round(P, q, A, scaled, st)
-        while bool(~carry[7] & (carry[6] < st.max_iter)):
-            carry = admm_round(carry)
-    x, z, y, _, _, _, it, conv, pri, dua = carry
-    return QPSolution(x=D * x, y=(E * y) / c, z=z / E, iters=it,
-                      converged=conv, pri_res=pri, dua_res=dua)
+        run = drv("setup", functools.partial(_setup, st=st, factor=_factor),
+                  P, q, A, l, u, x0, y0)
+        tr = drv("trace.alloc", lambda run: {
+            k: torch.empty((n_rounds,) + v.shape, dtype=v.dtype,
+                           device=v.device)
+            for k, v in zip(_TRACE_KEYS, (run.x, run.z, run.y, run.rho_bar,
+                                          run.pri, run.dua))}, run)
+
+        def record(run, i):
+            drv("trace.record", lambda run, i: write_row(
+                [tr[k] for k in _TRACE_KEYS], _observed(run), i), run, i)
+        drv.repeat("qp", run,
+                   functools.partial(_round, st=st, solve=_chol_solve),
+                   functools.partial(_refactor, st=st, factor=_factor),
+                   n_rounds, each=record)
+    return tr
+
+
+def _observed(run: DenseRun) -> tuple:
+    """What a trace records of a round (``_TRACE_KEYS``), unscaled, where
+    ``qp.oracle.solve(trace=True)`` observes it."""
+    sol = _unscaled(run, 0)
+    return sol.x, sol.z, sol.y, run.rho_bar, run.pri, run.dua
+
+
+def trace_rounds_eager(P, q, A, l, u, settings: QPSettings = QPSettings(),
+                       n_rounds: int = 8, x0=None, y0=None) -> dict:
+    """:func:`trace_rounds` issued from the host."""
+    return _trace_program(EAGER, P, q, A, l, u, x0, y0, settings, n_rounds)
 
 
 def trace_rounds(P, q, A, l, u, settings: QPSettings = QPSettings(),
@@ -250,21 +375,13 @@ def trace_rounds(P, q, A, l, u, settings: QPSettings = QPSettings(),
     body) and return the unscaled trajectory: a dict of x, z, y, rho_bar,
     pri_res and dua_res, each with a leading ``n_rounds`` axis, observed
     where ``qp.oracle.solve(trace=True)`` observes it. Set eps_abs =
-    eps_rel = 0 to keep convergence from freezing the iterates."""
-    st = settings
-    keys = ("x", "z", "y", "rho_bar", "pri_res", "dua_res")
-    tr = {k: [] for k in keys}
-    with highest_precision():
-        scaled, carry = _setup_scalar(P, q, A, l, u, x0, y0, st)
-        D, E, c = scaled[3], scaled[4], scaled[5]
-        admm_round = _make_scalar_round(P, q, A, scaled, st)
-        for _ in range(n_rounds):
-            carry = admm_round(carry)
-            x, z, y, _, _, rho_bar, _, _, pri, dua = carry
-            for k, v in zip(keys, (D * x, z / E, (E * y) / c, rho_bar, pri,
-                                   dua)):
-                tr[k].append(v)
-    return {k: torch.stack(v) for k, v in tr.items()}
+    eps_rel = 0 to keep convergence from freezing the iterates. A compiled
+    call keyed by ``n_rounds`` too, bit for bit
+    :func:`trace_rounds_eager`."""
+    return compiled(SOLVERS, ("trace_rounds", settings, n_rounds),
+                    functools.partial(_trace_program, settings=settings,
+                                      n_rounds=n_rounds),
+                    (P, q, A, l, u, x0, y0), P.device)[0]
 
 
 # ----------------------------- a batch of QPs --------------------------------
@@ -277,63 +394,33 @@ def _factor_inv(Ps, As, rho, sigma):
     return torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
 
 
+def _inv_solve(Linv, b):
+    w = Linv @ b[..., None]
+    return (Linv.mT @ w)[..., 0]
+
+
+def _batched_program(drv, P, q, A, l, u, x0, y0, settings):
+    return _solve(drv, P, q, A, l, u, x0, y0, settings, _inv_solve,
+                  _factor_inv)
+
+
+def solve_qp_batched_eager(P, q, A, l, u, x0=None, y0=None,
+                           settings: QPSettings = QPSettings()
+                           ) -> QPSolution:
+    """:func:`solve_qp_batched` issued from the host, one read a round."""
+    return _batched_program(EAGER, P, q, A, l, u, x0, y0, settings)
+
+
 def solve_qp_batched(P, q, A, l, u, x0=None, y0=None,
                      settings: QPSettings = QPSettings()) -> QPSolution:
     """Solve a batch of QPs, a leading batch axis on every input (P (B, nv,
     nv), A (B, nc, nv), ...), on their device and in their dtype.
 
     One Cholesky factor and its explicit inverse per rho update, so every
-    ADMM iteration is two batched matvecs; a round refactors only the QPs
-    whose rho changed, and only when one did. Converged QPs are frozen.
-    Semantics match :func:`solve_qp`."""
-    st = settings
-    B, nv = P.shape[0], P.shape[-1]
-    nc = A.shape[-2]
-    dt, dev = P.dtype, P.device
-    with highest_precision():
-        Ps, qs, As, D, E, c = _ruiz(P, q, A, st.scaling_iters)
-        ls, us, eq, loose = _scale_bounds(l, u, E)
-        rho_bar = torch.full((B,), st.rho_bar, dtype=dt, device=dev)
-        rho = _make_rho(rho_bar, eq, loose)
-        Linv = _factor_inv(Ps, As, rho, st.sigma)
-        x = torch.zeros((B, nv), dtype=dt, device=dev) if x0 is None \
-            else x0 / D
-        y = torch.zeros((B, nc), dtype=dt, device=dev) if y0 is None \
-            else y0 * E / c[:, None]
-        z = (As @ x[..., None])[..., 0]
-        it = torch.zeros((B,), dtype=torch.long, device=dev)
-        conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-        pri = torch.full((B,), torch.inf, dtype=dt, device=dev)
-        dua = torch.full((B,), torch.inf, dtype=dt, device=dev)
-
-        while bool(torch.any(~conv & (it < st.max_iter))):
-            x_n, z_n, y_n = x, z, y
-            for _ in range(st.check_every):
-                w = Linv @ _rhs(st, x_n, z_n, y_n, qs, As, rho)[..., None]
-                xt = (Linv.mT @ w)[..., 0]
-                x_n, z_n, y_n = _relaxed_step(st, xt, x_n, z_n, y_n, As,
-                                              rho, ls, us)
-            cv = conv[:, None]
-            x = torch.where(cv, x, x_n)
-            z = torch.where(cv, z, z_n)
-            y = torch.where(cv, y, y_n)
-            it = torch.where(conv, it, it + st.check_every)
-
-            pri_res, dua_res, n_pri, n_dua, ok = _residuals(
-                P, q, A, D * x, z / E, (E * y) / c[:, None], st)
-            conv_new = conv | ok
-            if st.adaptive_rho:
-                need, rho_bar = _rho_update(pri_res, dua_res, n_pri, n_dua,
-                                            conv_new, rho_bar)
-                idx = need.nonzero()[:, 0]
-                if len(idx):
-                    rho_i = _make_rho(rho_bar[idx], eq[idx], loose[idx])
-                    rho[idx] = rho_i
-                    Linv[idx] = _factor_inv(Ps[idx], As[idx], rho_i,
-                                            st.sigma)
-            pri = torch.where(conv, pri, pri_res)
-            dua = torch.where(conv, dua, dua_res)
-            conv = conv_new
-
-    return QPSolution(x=D * x, y=(E * y) / c[:, None], z=z / E, iters=it,
-                      converged=conv, pri_res=pri, dua_res=dua)
+    ADMM iteration is two batched matvecs; a round that changes some QP's
+    rho refactors (every QP, keeping the new factor where rho changed).
+    Converged QPs are frozen. Semantics match :func:`solve_qp`. A compiled
+    call (see the module), bit for bit :func:`solve_qp_batched_eager`."""
+    return compiled(SOLVERS, ("solve_qp_batched", settings),
+                    functools.partial(_batched_program, settings=settings),
+                    (P, q, A, l, u, x0, y0), P.device)[0]

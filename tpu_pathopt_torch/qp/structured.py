@@ -28,7 +28,7 @@ from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.qp.admm import INFTY, QPSettings
 from tpu_pathopt_torch.solver import fused_rounds
 from tpu_pathopt_torch.solver.fused_rounds import lane, unlane
-from tpu_pathopt_torch.torchutil import EAGER
+from tpu_pathopt_torch.torchutil import EAGER, SOLVERS, compiled
 
 
 @dataclasses.dataclass
@@ -299,6 +299,22 @@ def solve_structured(drv, name: str, run: StructuredRun,
         settings.max_iter)
 
 
+def _program(drv, qp: BlockBandedQP, v0, y0, settings: QPSettings
+             ) -> StructuredSolution:
+    run = drv("setup", functools.partial(structured_setup,
+                                         settings=settings), qp, v0, y0)
+    run, rounds = solve_structured(drv, "qp", run, settings)
+    return structured_solution(run, rounds)
+
+
+def solve_structured_batched_eager(qp: BlockBandedQP, v0=None, y0=None,
+                                   settings: QPSettings = QPSettings()
+                                   ) -> StructuredSolution:
+    """:func:`solve_structured_batched` issued from the host, one read a
+    round (``rounds`` a Python int)."""
+    return _program(EAGER, qp, v0, y0, settings)
+
+
 def solve_structured_batched(qp: BlockBandedQP, v0=None, y0=None,
                              settings: QPSettings = QPSettings()
                              ) -> StructuredSolution:
@@ -307,7 +323,10 @@ def solve_structured_batched(qp: BlockBandedQP, v0=None, y0=None,
     With ``settings.fused_rounds`` the factorization and every round go
     through the kernels K1 and K3 (their plain versions for CPU tensors);
     otherwise through the plain PyTorch rounds. Residuals, termination and
-    the adaptive-rho logic run outside the kernel."""
-    run = structured_setup(qp, v0, y0, settings)
-    run, rounds = solve_structured(EAGER, "qp", run, settings)
-    return structured_solution(run, rounds)
+    the adaptive-rho logic run outside the kernel. A compiled call, as the
+    JAX package jits it (``torchutil.compiled``: on CUDA one graph per
+    static key, the rounds a WHILE node, the refactor an IF node in it);
+    bit for bit :func:`solve_structured_batched_eager`, ``rounds`` a 0-d
+    device tensor."""
+    return compiled(SOLVERS, ("structured", settings), functools.partial(
+        _program, settings=settings), (qp, v0, y0), qp.q.device)[0]

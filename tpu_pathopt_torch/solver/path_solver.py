@@ -18,6 +18,10 @@ each round computing its loop test and refactor gate on the device.
 :func:`solve_path_qp` and :func:`trace_path_rounds` run the JAX package's
 scalar rounds (uninverted factors, a refactor every round) on a batch; the
 CLI's ``--verbose-qp`` prints the trace.
+
+The three are compiled calls, as the JAX package jits them
+(``torchutil.compiled``); ``<name>_eager`` runs the same program from the
+host, one read a round.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from tpu_pathopt_torch.qp.structured import run_rounds
 from tpu_pathopt_torch.solver import assembly, fused_rounds
 from tpu_pathopt_torch.solver.assembly import PathQP
 from tpu_pathopt_torch.solver.fused_rounds import lane, unlane
-from tpu_pathopt_torch.torchutil import EAGER, scalar
+from tpu_pathopt_torch.torchutil import (EAGER, SOLVERS, compiled, scalar,
+                                         write_row)
 
 
 @dataclasses.dataclass
@@ -58,81 +63,146 @@ def _rows(mask, a):
     return mask.reshape(mask.shape + (1,) * (a.dim() - 1))
 
 
-def _scalar_round_setup(qp: PathQP, v0, y0_knot, y0_end,
-                        settings: QPSettings, rho0=None):
-    """The initial carry and the round of the scalar structured solver,
+@dataclasses.dataclass
+class ScalarPathRun:
+    """One batch of scalar-round solves in flight (JAX
+    ``_scalar_round_setup``'s carry): the QP and what the rounds read of it
+    (read only), and the loop state, which the rounds update in place.
+    ``flags`` holds [any element active, any element refactored]; the
+    rounds refactor themselves (a select, as the JAX round does), so the
+    loop has no refactor of its own."""
+    qp: PathQP
+    ops: tuple               # (t_prev, coll_coef, end knot)
+    bounds: tuple            # (lb_knot, ub_knot, lb_end, ub_end)
+    cls: tuple               # (cls_knot, cls_end)
+    state: tuple             # (v, zk, ze, yk, ye), batch-leading
+    rk: torch.Tensor
+    re: torch.Tensor
+    C: torch.Tensor
+    W: torch.Tensor
+    rho_bar: torch.Tensor
+    it: torch.Tensor
+    conv: torch.Tensor
+    pri: torch.Tensor
+    dua: torch.Tensor
+    flags: torch.Tensor
+
+
+def _scalar_factor(qp: PathQP, cls, rho_bar, st: QPSettings):
+    """The uninverted factors at ``rho_bar`` (each sweep step of the
+    scalar round a triangular solve)."""
+    cls_knot, cls_end = cls
+    rk = rho_bar[:, None, None] * cls_knot
+    re = rho_bar[:, None] * cls_end
+    C, W = btridiag.factor(*assembly.normal_blocks(qp, rk, re, st.sigma))
+    return rk, re, C, W
+
+
+def _scalar_setup(qp: PathQP, v0, y0_knot, y0_end, settings: QPSettings,
+                  rho0=None) -> ScalarPathRun:
+    """The state before the first round of the scalar structured solver,
     shared by :func:`solve_path_qp` and :func:`trace_path_rounds` so the
-    trace observes the rounds the solve runs (JAX ``_scalar_round_setup``).
-    The carry is (v, zk, ze, yk, ye, rk, re, C, W, rho_bar, iters,
-    converged, pri_res, dua_res), batch-leading. Unlike
-    :func:`solve_path_qp_batched` the factors stay uninverted (each sweep
-    step a triangular solve) and every round refactors at the adapted rho,
-    keeping it where no element needs it, as the JAX function does."""
+    trace observes the rounds the solve runs (JAX
+    ``_scalar_round_setup``). Unlike :func:`solve_path_qp_batched` the
+    factors stay uninverted and every round refactors at the adapted rho,
+    keeping it where no element needs it, as the JAX function does. Every
+    state tensor is new (a given warm start is copied)."""
     st = settings
     B, N = qp.p_diag.shape[:2]
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
-    lb_knot, ub_knot, lb_end, ub_end = assembly.bounds(qp)
-    cls_knot, cls_end = assembly.rho_classes(qp)
+    cls = assembly.rho_classes(qp)
     ops = (qp.t_prev, qp.coll_coef, assembly.end_knot(qp.end_idx, N))
-
-    def factor(rho_bar):
-        rk = rho_bar[:, None, None] * cls_knot
-        re = rho_bar[:, None] * cls_end
-        C, W = btridiag.factor(*assembly.normal_blocks(qp, rk, re, st.sigma))
-        return rk, re, C, W
-
     rho_bar0 = (torch.full((B,), st.rho_bar, dtype=dt, device=dev)
                 if rho0 is None else
                 scalar(rho0, dt, dev).expand(B).clone())
     v = torch.zeros((B, N, assembly.NB), dtype=dt, device=dev) \
-        if v0 is None else v0
+        if v0 is None else v0.clone()
     yk = torch.zeros((B, N, 6), dtype=dt, device=dev) \
-        if y0_knot is None else y0_knot
+        if y0_knot is None else y0_knot.clone()
     ye = torch.zeros((B, 2), dtype=dt, device=dev) \
-        if y0_end is None else y0_end
+        if y0_end is None else y0_end.clone()
     zk, ze = assembly.a_mul_blocks(*ops, v)
-    init = (v, zk, ze, yk, ye, *factor(rho_bar0), rho_bar0,
-            torch.zeros((B,), dtype=torch.long, device=dev),
-            torch.zeros((B,), dtype=torch.bool, device=dev),
-            torch.full((B,), torch.inf, dtype=dt, device=dev),
-            torch.full((B,), torch.inf, dtype=dt, device=dev))
-
-    def admm_round(carry):
-        (v, zk, ze, yk, ye, rk, re, C, W, rho_bar, it, conv, pri,
-         dua) = carry
-        new = (v, zk, ze, yk, ye)
-        for _ in range(st.check_every):
-            new = fused_rounds.path_admm_step(
-                ops, C, W, lb_knot, ub_knot, lb_end, ub_end, rk, re, new,
-                st.alpha, st.sigma, solve=btridiag.solve)
-        v, zk, ze, yk, ye = (torch.where(_rows(conv, a), a, n) for a, n in
-                             zip((v, zk, ze, yk, ye), new))
-        it = torch.where(conv, it, it + st.check_every)
-        pri_res, dua_res, n_az, n_pd = fused_rounds.path_residuals(
-            ops, qp.p_diag, v, zk, ze, yk, ye)
-        conv_new = conv | ((pri_res <= st.eps_abs + st.eps_rel * n_az)
-                           & (dua_res <= st.eps_abs + st.eps_rel * n_pd))
-        if st.adaptive_rho:
-            num = pri_res / torch.clamp(n_az, min=1e-12)
-            den = dua_res / torch.clamp(n_pd, min=1e-12)
-            ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
-            need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
-            rho_bar = torch.where(
-                need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
-            rk, re, C, W = (torch.where(_rows(need, a), n, a) for a, n in
-                            zip((rk, re, C, W), factor(rho_bar)))
-        return (v, zk, ze, yk, ye, rk, re, C, W, rho_bar, it, conv_new,
-                torch.where(conv, pri, pri_res), torch.where(conv, dua,
-                                                             dua_res))
-
-    return init, admm_round
+    rk, re, C, W = _scalar_factor(qp, cls, rho_bar0, st)
+    return ScalarPathRun(
+        qp=qp, ops=ops, bounds=assembly.bounds(qp), cls=cls,
+        state=(v, zk, ze, yk, ye), rk=rk, re=re, C=C, W=W, rho_bar=rho_bar0,
+        it=torch.zeros((B,), dtype=torch.long, device=dev),
+        conv=torch.zeros((B,), dtype=torch.bool, device=dev),
+        pri=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        dua=torch.full((B,), torch.inf, dtype=dt, device=dev),
+        flags=torch.ones((2,), dtype=torch.bool, device=dev))
 
 
-def _solution_from_carry(carry, rounds: int) -> PathQPSolution:
-    v, _, _, yk, ye = carry[:5]
-    return PathQPSolution(v=v, y_knot=yk, y_end=ye, iters=carry[10],
-                          converged=carry[11], pri_res=carry[12],
-                          dua_res=carry[13], rho_bar=carry[9], rounds=rounds)
+def _scalar_round(run: ScalarPathRun, settings: QPSettings
+                  ) -> ScalarPathRun:
+    """One round of the scalar solver: ``check_every`` ADMM iterations,
+    termination, and the adaptive-rho refactor, kept where rho changed."""
+    st = settings
+    conv = run.conv
+    new = run.state
+    for _ in range(st.check_every):
+        new = fused_rounds.path_admm_step(
+            run.ops, run.C, run.W, *run.bounds, run.rk, run.re, new,
+            st.alpha, st.sigma, solve=btridiag.solve)
+    state = tuple(torch.where(_rows(conv, a), a, n) for a, n in
+                  zip(run.state, new))
+    it = torch.where(conv, run.it, run.it + st.check_every)
+    pri_res, dua_res, n_az, n_pd = fused_rounds.path_residuals(
+        run.ops, run.qp.p_diag, *state)
+    conv_new = conv | ((pri_res <= st.eps_abs + st.eps_rel * n_az)
+                       & (dua_res <= st.eps_abs + st.eps_rel * n_pd))
+    rk, re, C, W, rho_bar = run.rk, run.re, run.C, run.W, run.rho_bar
+    need = torch.zeros_like(conv)
+    if st.adaptive_rho:
+        num = pri_res / torch.clamp(n_az, min=1e-12)
+        den = dua_res / torch.clamp(n_pd, min=1e-12)
+        ratio = torch.sqrt(num / torch.clamp(den, min=1e-12))
+        need = ~conv_new & ((ratio > 5.0) | (ratio < 0.2))
+        rho_bar = torch.where(
+            need, torch.clamp(rho_bar * ratio, 1e-6, 1e6), rho_bar)
+        rk, re, C, W = (torch.where(_rows(need, a), n, a) for a, n in
+                        zip((rk, re, C, W), _scalar_factor(
+                            run.qp, run.cls, rho_bar, st)))
+    flags = torch.stack([torch.any(~conv_new & (it < st.max_iter)),
+                         torch.any(need)])
+    return dataclasses.replace(
+        run, state=state, rk=rk, re=re, C=C, W=W, rho_bar=rho_bar, it=it,
+        conv=conv_new, pri=torch.where(conv, run.pri, pri_res),
+        dua=torch.where(conv, run.dua, dua_res), flags=flags)
+
+
+def _scalar_solution(run: ScalarPathRun, rounds) -> PathQPSolution:
+    v, _, _, yk, ye = run.state
+    return PathQPSolution(v=v, y_knot=yk, y_end=ye, iters=run.it,
+                          converged=run.conv, pri_res=run.pri,
+                          dua_res=run.dua, rho_bar=run.rho_bar,
+                          rounds=rounds)
+
+
+def _scalar_program(drv, qp: PathQP, v0, y0_knot, y0_end, rho0,
+                    settings: QPSettings) -> PathQPSolution:
+    run = drv("setup", lambda q, a, b, c, r: _scalar_setup(
+        q, a, b, c, settings, rho0=r), qp, v0, y0_knot, y0_end, rho0)
+    run, rounds = drv.loop("qp", run, functools.partial(
+        _scalar_round, settings=settings), None, settings.max_iter > 0)
+    return _scalar_solution(run, rounds)
+
+
+def _static_rho0(rho0, qp: PathQP):
+    """A number given as ``rho0`` as a 0-d tensor of the QP's dtype on its
+    device, so that one compiled key serves every value (the same value
+    the solver makes of the number)."""
+    if isinstance(rho0, (bool, int, float)):
+        return scalar(rho0, qp.p_diag.dtype, qp.p_diag.device)
+    return rho0
+
+
+def solve_path_qp_eager(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
+                        settings: QPSettings = QPSettings(),
+                        rho0=None) -> PathQPSolution:
+    """:func:`solve_path_qp` issued from the host, one read a round
+    (``rounds`` a Python int)."""
+    return _scalar_program(EAGER, qp, v0, y0_knot, y0_end, rho0, settings)
 
 
 def solve_path_qp(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
@@ -143,14 +213,48 @@ def solve_path_qp(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
     element converged or reached ``max_iter``, converged elements frozen,
     so each element's result is the one it gets alone. It never reaches a
     kernel, in the JAX package either; the pipeline solves through
-    :func:`solve_path_qp_batched`."""
-    carry, admm_round = _scalar_round_setup(qp, v0, y0_knot, y0_end,
-                                            settings, rho0)
-    rounds = 0
-    while bool(torch.any(~carry[11] & (carry[10] < settings.max_iter))):
-        carry = admm_round(carry)
-        rounds += 1
-    return _solution_from_carry(carry, rounds)
+    :func:`solve_path_qp_batched`. A compiled call (on CUDA one graph per
+    static key, the rounds a WHILE node), bit for bit
+    :func:`solve_path_qp_eager`, ``rounds`` a 0-d device tensor."""
+    return compiled(SOLVERS, ("solve_path_qp", settings), functools.partial(
+        _scalar_program, settings=settings),
+        (qp, v0, y0_knot, y0_end, _static_rho0(rho0, qp)),
+        qp.p_diag.device)[0]
+
+
+_TRACE_KEYS = ("iters", "pri_res", "dua_res", "rho_bar", "converged")
+
+
+def _observed(run: ScalarPathRun) -> tuple:
+    return run.it, run.pri, run.dua, run.rho_bar, run.conv
+
+
+def _trace_program(drv, qp: PathQP, v0, y0_knot, y0_end, rho0,
+                   settings: QPSettings, n_rounds: int) -> dict:
+    """Exactly ``n_rounds`` rounds of the scalar solver (the JAX package's
+    ``lax.scan``), each recorded into its row of buffers allocated before
+    the first."""
+    run = drv("setup", lambda q, a, b, c, r: _scalar_setup(
+        q, a, b, c, settings, rho0=r), qp, v0, y0_knot, y0_end, rho0)
+    tr = drv("trace.alloc", lambda run: {
+        k: torch.empty((n_rounds,) + v.shape, dtype=v.dtype, device=v.device)
+        for k, v in zip(_TRACE_KEYS, _observed(run))}, run)
+
+    def record(run, i):
+        drv("trace.record", lambda run, i: write_row(
+            [tr[k] for k in _TRACE_KEYS], _observed(run), i), run, i)
+    drv.repeat("qp", run, functools.partial(_scalar_round,
+                                            settings=settings), None,
+               n_rounds, each=record)
+    return tr
+
+
+def trace_path_rounds_eager(qp: PathQP, settings: QPSettings = QPSettings(),
+                            n_rounds: int = 16, v0=None, y0_knot=None,
+                            y0_end=None, rho0=None) -> dict:
+    """:func:`trace_path_rounds` issued from the host."""
+    return _trace_program(EAGER, qp, v0, y0_knot, y0_end, rho0, settings,
+                          n_rounds)
 
 
 def trace_path_rounds(qp: PathQP, settings: QPSettings = QPSettings(),
@@ -160,16 +264,15 @@ def trace_path_rounds(qp: PathQP, settings: QPSettings = QPSettings(),
     the trajectory: a dict of iters, pri_res, dua_res, rho_bar and
     converged, each (n_rounds, B). Converged elements freeze, so the
     trajectory is what the solve ran. It is the reference's OSQP
-    ``verbose = true`` (base_solver.cpp:59), the CLI's ``--verbose-qp``."""
-    carry, admm_round = _scalar_round_setup(qp, v0, y0_knot, y0_end,
-                                            settings, rho0)
-    rows = []
-    for _ in range(n_rounds):
-        carry = admm_round(carry)
-        rows.append(dict(iters=carry[10], pri_res=carry[12],
-                         dua_res=carry[13], rho_bar=carry[9],
-                         converged=carry[11]))
-    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    ``verbose = true`` (base_solver.cpp:59), the CLI's ``--verbose-qp``.
+    A compiled call keyed by ``n_rounds`` too (on CUDA one graph with no
+    conditional node), bit for bit :func:`trace_path_rounds_eager`."""
+    return compiled(
+        SOLVERS, ("trace_path_rounds", settings, n_rounds),
+        functools.partial(_trace_program, settings=settings,
+                          n_rounds=n_rounds),
+        (qp, v0, y0_knot, y0_end, _static_rho0(rho0, qp)),
+        qp.p_diag.device)[0]
 
 
 @dataclasses.dataclass
@@ -372,10 +475,35 @@ def solve_path(drv, name: str, run: PathRun, settings: QPSettings) -> tuple:
         settings.max_iter, on_read=check_rows)
 
 
+def _batched_program(drv, qp: PathQP, v0, y0_knot, y0_end, rho0,
+                     settings: QPSettings) -> PathQPSolution:
+    run = drv("setup", lambda q, a, b, c, r: path_setup(
+        q, a, b, c, settings, rho0=r), qp, v0, y0_knot, y0_end, rho0)
+    run, rounds = solve_path(drv, "qp", run, settings)
+    return drv("solution", path_solution, run, rounds)
+
+
+def solve_path_qp_batched_eager(qp: PathQP, v0=None, y0_knot=None,
+                                y0_end=None,
+                                settings: QPSettings = QPSettings(),
+                                rho0=None) -> PathQPSolution:
+    """:func:`solve_path_qp_batched` issued from the host, one read a
+    round (``rounds`` a Python int); collision rows K2 does not take raise
+    at the first round's read."""
+    return _batched_program(EAGER, qp, v0, y0_knot, y0_end, rho0, settings)
+
+
 def solve_path_qp_batched(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
                           settings: QPSettings = QPSettings(),
                           rho0=None) -> PathQPSolution:
-    """Solve a batch of path QPs on the device their tensors lie on."""
-    run = path_setup(qp, v0, y0_knot, y0_end, settings, rho0)
-    run, rounds = solve_path(EAGER, "qp", run, settings)
-    return path_solution(run, rounds)
+    """Solve a batch of path QPs on the device their tensors lie on. A
+    compiled call, as the JAX package jits it (on CUDA one graph per
+    static key, the rounds a WHILE node, the refactor an IF node in it),
+    bit for bit :func:`solve_path_qp_batched_eager`, ``rounds`` a 0-d
+    device tensor; collision rows K2 does not take converge no element and
+    raise at the first read of the counts after the call
+    (``kernels.sync_counts``)."""
+    return compiled(SOLVERS, ("solve_path_qp_batched", settings),
+                    functools.partial(_batched_program, settings=settings),
+                    (qp, v0, y0_knot, y0_end, _static_rho0(rho0, qp)),
+                    qp.p_diag.device)[0]

@@ -25,8 +25,8 @@ def resolve_device(device=None) -> torch.device:
 
 def tree_map(fn, obj):
     """Apply ``fn`` to every tensor inside nested dataclasses / tuples /
-    lists (the pytree ``tree_map`` of the JAX package, for this port's
-    dataclasses). Non-tensor leaves are kept as they are."""
+    lists / dicts (the pytree ``tree_map`` of the JAX package, for this
+    port's dataclasses). Non-tensor leaves are kept as they are."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -35,6 +35,8 @@ def tree_map(fn, obj):
             for f in dataclasses.fields(obj) if f.init})
     if isinstance(obj, (tuple, list)):
         return type(obj)(tree_map(fn, o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, v) for k, v in obj.items()}
     return obj
 
 
@@ -146,6 +148,14 @@ def in_loop_read() -> bool:
     return _LOOP_READS[0] > 0
 
 
+def write_row(bufs, values, i):
+    """Write each of ``values`` into row ``i`` (a 0-d int64 device tensor)
+    of its buffer in ``bufs``, with no host read of ``i``: a trace's
+    record of a round inside a device-side loop."""
+    for b, v in zip(bufs, values):
+        b.index_copy_(0, i.reshape(1), v.unsqueeze(0))
+
+
 # ------------------------- segments (compiled calls) -------------------------
 
 def host_flags(flags: torch.Tensor) -> list:
@@ -173,6 +183,8 @@ def signature(obj):
             for f in dataclasses.fields(obj) if f.init)
     if isinstance(obj, (tuple, list)):
         return (type(obj).__name__,) + tuple(signature(o) for o in obj)
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((k, signature(v)) for k, v in obj.items())
     return obj
 
 
@@ -307,10 +319,11 @@ class Segments:
         ".round"``) while ``run.flags[0]`` after it, and after each round
         ``run = refactor_fn(run)`` (segment ``name + ".refactor"``) where
         ``run.flags[1]``; no round where ``start`` is False. Both update
-        ``run`` in place. ``on_read(flags)``, if given, sees each round's
-        read on the eager path and in a warm-up and returns the launch-key
-        fills it decided (``{tag: value}``, see ``kernels.fill_key``); a
-        compiled call reuses the warm-up's. Returns ``(run, rounds)``:
+        ``run`` in place; a ``refactor_fn`` of None is a loop with no
+        refactor (no IF node). ``on_read(flags)``, if given, sees each
+        round's read on the eager path and in a warm-up and returns the
+        launch-key fills it decided (``{tag: value}``, see
+        ``kernels.fill_key``); a compiled call reuses the warm-up's. Returns ``(run, rounds)``:
         rounds a Python int on the eager path, in a compiled call a 0-d
         int64 device tensor (read only by :meth:`sync`)."""
         if self.mode == "capture":
@@ -334,7 +347,7 @@ class Segments:
                 if on_read is not None:
                     self._fill(name, on_read(flags) or {})
             active, need = flags[0], flags[1]
-            if need:
+            if need and refactor_fn is not None:
                 run = self._body(name, ".refactor", refactor_fn, run)
                 if compiled:
                     _bump(tally, 1)
@@ -353,12 +366,72 @@ class Segments:
         with self._node(True, default=int(start)) as handle:
             run = self._body(name, ".round", round_fn, run)
             _bump(tally, 0)
-            with self._node(False, flag=run.flags[1]):
-                run = self._body(name, ".refactor", refactor_fn, run)
-                _bump(tally, 1)
+            if refactor_fn is not None:
+                run = self._if(name, run, refactor_fn, tally)
             kernels.set_condition(handle, run.flags[0], self._stream())
         tally[2:] += tally[:2]
         return run, tally[0]
+
+    def _if(self, name, run, refactor_fn, tally):
+        """The refactor under an IF node on ``run.flags[1]``, counted in
+        ``tally[1]``."""
+        with self._node(False, flag=run.flags[1]):
+            run = self._body(name, ".refactor", refactor_fn, run)
+            _bump(tally, 1)
+        return run
+
+    def repeat(self, name: str, run, round_fn, refactor_fn, n: int,
+               each=None):
+        """Exactly ``n`` rounds, the counterpart of ``lax.scan`` over a
+        round: ``run = round_fn(run)`` (segment ``name + ".round"``), then
+        ``run = refactor_fn(run)`` where ``run.flags[1]`` (the round's
+        ``lax.cond``; None: no refactor), then ``each(run, i)`` with ``i``
+        the round's index, a 0-d int64 tensor on the device of
+        ``run.flags`` (a trace writes its row ``i``). Captured as a WHILE
+        node on a device counter (``i < n``; XLA compiles a scan to a loop
+        too: the body is captured once, not ``n`` times), each refactor an
+        IF node in it. Eager and on the
+        CPU a host loop of ``n`` rounds, each refactor's test one host
+        read, in a compiled call marked as the IF node's stand-in. Returns
+        ``run``."""
+        counted = self.mode in ("run", "capture")
+        tally = (self._tally(self.loops, name, 4) if self.mode != "eager"
+                 else None)
+        if counted:
+            tally[:2].zero_()
+        dev = run.flags.device
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.mode == "capture":
+            more = torch.zeros((), dtype=torch.bool, device=dev)
+            with self._node(True, default=int(n > 0)) as handle:
+                run = self._body(name, ".round", round_fn, run)
+                _bump(tally, 0)
+                if refactor_fn is not None:
+                    run = self._if(name, run, refactor_fn, tally)
+                if each is not None:
+                    each(run, i)
+                i.add_(1)
+                torch.lt(i, n, out=more)
+                kernels.set_condition(handle, more, self._stream())
+            tally[2:] += tally[:2]
+            return run
+        for _ in range(n):
+            run = self._body(name, ".round", round_fn, run)
+            if counted:
+                _bump(tally, 0)
+            if refactor_fn is not None:
+                with loop_read() if counted else contextlib.nullcontext():
+                    need = self.read(run.flags)[1]
+                if need:
+                    run = self._body(name, ".refactor", refactor_fn, run)
+                    if counted:
+                        _bump(tally, 1)
+            if each is not None:
+                each(run, i)
+            i.add_(1)
+        if counted:
+            tally[2:] += tally[:2]
+        return run
 
     def _body(self, name, part, fn, run):
         """A loop's round or refactor, in place on ``run``. In a compiled
@@ -544,6 +617,23 @@ class Segments:
 EAGER = Segments()
 
 
+def compiled(cache: "SegmentCache", key, program, inputs: tuple, device):
+    """One compiled call of ``program(drv, *inputs)`` (a tuple of pytrees)
+    on ``device``, through the :class:`Segments` that ``cache`` keeps for
+    the static ``key`` (the arguments ``program`` closes over), the device
+    and the inputs' signature: on CUDA a replay of the graph the key's
+    first call captured, on the CPU a run of the program
+    (:meth:`Segments.call`). The result is cloned out of the graph's
+    memory, so a later call never changes a result already returned.
+    Returns (result, the key's Segments); its round counts stay on the
+    device until :meth:`Segments.sync` reads them."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    segs = cache.get((key, dev, signature(inputs)), dev)
+    return tree_map(torch.clone, segs.call(program, inputs)), segs
+
+
 class SegmentCache:
     """Compiled calls' :class:`Segments`, one per static key, the least
     recently used dropped past ``maxsize`` (its graph and pool freed, its
@@ -567,3 +657,9 @@ class SegmentCache:
     def clear(self):
         while self.entries:
             self.entries.pop(next(iter(self.entries))).sync(check=False)
+
+
+# The standalone QP solvers' compiled calls (``qp.admm``, ``qp.structured``,
+# ``solver.path_solver``): a cache of their own, so that a solver's keys
+# never evict the pipeline's (``pipeline.COMPILED``).
+SOLVERS = SegmentCache(maxsize=16)
