@@ -40,9 +40,10 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    and on the fine 135-lateral lattice;
    K3 at (9, 9) on 200 conditioned groups and K4 on a 300-lateral lattice
    (``wide_inputs``); K2 and K3 with a NaN bound; the cluster path forced
-   at 128 and 256 knots bit for bit equal to one CTA
-   (``check_cluster_path``); and K2 and K3 one knot past their limits and
-   K4 at 1025 laterals refused;
+   at 128 and 256 knots in clusters of 2, 3, 4 and 8 bit for bit equal to
+   one CTA (``check_cluster_path``); each cluster launch's time beside its
+   chain floor (``chain_floors``); and K2 and K3 one knot past their
+   limits and K4 at 1025 laterals refused;
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
@@ -623,7 +624,7 @@ def check_kernels(captured: dict) -> tuple[dict, dict, dict]:
                                  f"version: {cmp}")
         by_shape.setdefault(name, {})[shape] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            max_abs_err=cmp["max_abs_err"], held=held)
+            max_abs_err=cmp["max_abs_err"], held=held, **chain)
         if (name, shape) == ("fused_admm_round", "rough"):
             check_rough_rows_seen(args, want)
         if shape == PRIMARY.get(name, "main"):
@@ -634,6 +635,8 @@ def check_kernels(captured: dict) -> tuple[dict, dict, dict]:
     missing = [n for n in KERNELS if n not in primary]
     if missing:
         raise AssertionError(f"the main path gave no input to {missing}")
+    emit(dict(phase="kernel", name="chain_floor",
+              rows=chain_floors(captured, by_shape)))
     for name, shape, args in edge_cases(captured):
         _, _, wrapper, plain = KERNELS[name]
         got = wrapper(*args)
@@ -652,6 +655,35 @@ def check_kernels(captured: dict) -> tuple[dict, dict, dict]:
         if shape == "nb=9,r=9,conditioned":
             check_d_row_faults(args, want)
     return primary, worst, by_shape
+
+
+def chain_floors(captured: dict, by_shape: dict) -> list:
+    """For each K2/K3 launch that takes a cluster: its time beside its
+    chain floor, the dependent steps of one scenario at the step time of
+    the same kernel and block shape on one CTA (the main path's launch,
+    timed above): the time of one wave if every scenario's walk were
+    resident at once. ``waves`` is the launch's time over that floor."""
+    one_cta = {("fused_admm_round", (6, 3)): "main"}
+    for nb, r in fused_rounds.ROUND_SHAPES:
+        one_cta[("fused_structured_round", (nb, r))] = f"nb={nb},r={r}"
+    rows = []
+    for (name, shape), args in sorted(captured.items()):
+        if name not in ITERS_ARG or shape not in by_shape.get(name, {}):
+            continue
+        nb_r = _round_shape(name, args)
+        plan = fused_rounds.round_plan(name, _knots(name, args), *nb_r)
+        ref = by_shape[name].get(one_cta[(name, nb_r)])
+        if plan.cluster == 1 or ref is None:
+            continue
+        got = by_shape[name][shape]
+        floor = got["chain_steps"] * ref["ns_per_chain_step"] * 1e-6
+        rows.append(dict(name=name, shape=shape, plan=list(plan),
+                         ms=got["ms"], bound_ms=got["bound_ms"],
+                         chain_steps=got["chain_steps"],
+                         one_cta_ns_per_step=ref["ns_per_chain_step"],
+                         chain_floor_ms=floor,
+                         waves=(got["ms"] - got["ms_no_iters"]) / floor))
+    return rows
 
 
 def check_rough_rows_seen(args, want):
@@ -879,6 +911,11 @@ CLUSTER_CHECKS = (
     ("fused_structured_round", f"nb=9,r=9,N={WIDE_GROUPS},conditioned", 128,
      (2, 3)),
 )
+# The same at the cluster sizes the configurations' plans reach (c 4 at
+# 1024 knots) and the largest: each cluster CTA streams G and H through
+# its ring of bulk copies (csrc/btri_sweep.cuh).
+CLUSTER_CHECKS_WIDE = tuple((name, key, n, (4, 8))
+                            for name, key, n, _ in CLUSTER_CHECKS)
 
 
 def cut_knots(name: str, args, n: int) -> tuple:
@@ -904,11 +941,12 @@ def bit_equal(got, want) -> bool:
 
 def check_cluster_path(captured: dict):
     """K2 and K3 with the cluster path forced (the wrappers' private
-    ``_cluster``) at 128 and 256 knots, where one CTA also runs them: the
-    result must equal the one-CTA launch's bit for bit, and each launch be
-    counted under its own plan."""
+    ``_cluster``) at 128 and 256 knots, where one CTA also runs them, at
+    the sizes of CLUSTER_CHECKS and CLUSTER_CHECKS_WIDE: the result must
+    equal the one-CTA launch's bit for bit, and each launch be counted
+    under its own plan."""
     out = []
-    for name, key, n, sizes in CLUSTER_CHECKS:
+    for name, key, n, sizes in CLUSTER_CHECKS + CLUSTER_CHECKS_WIDE:
         wrapper = KERNELS[name][2]
         args = cut_knots(name, captured[(name, key)], n)
         one = wrapper(*args)

@@ -794,10 +794,11 @@ def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
     the default config's shapes the launch plan is one block per scenario
     (c = 1) with the bytes one block always took, at most 110 KB, so two
     fit on an SM and B = 256 runs in one wave on 132 SMs. K2 at the long
-    route's 512 knots takes a cluster of 2 blocks. Past the documented
-    limits (K2 2048 knots, K3 2048 at (4, 3) and (3, 3), 1200 at (9, 9):
-    8 blocks of as many knots as one holds) a shape raises instead of
-    launching."""
+    route's 512 knots takes a cluster of 2 blocks, each with G and H in
+    device memory and a ring of their rows in shared memory (51 floats a
+    knot, not 123). Past the documented limits (K2 2048 knots, K3 2048 at
+    (4, 3) and (3, 3), 1968 at (9, 9): 8 blocks of as many knots as one
+    streamed block holds) a shape raises instead of launching."""
     from tpu_pathopt_torch.config import PlannerConfig
     cfg = PlannerConfig()
     shapes = [("fused_admm_round", cfg.n_knots, 6, 3),
@@ -811,12 +812,15 @@ def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
     # K2 at N = 128: 123 floats per knot and a 48-float reduction tail.
     assert fused_rounds.round_smem_bytes("fused_admm_round", 128) == 63168
     assert fused_rounds.round_plan("fused_admm_round", 512) == (2, 256,
-                                                                126144)
+                                                                57040)
+    assert fused_rounds.round_smem_bytes("fused_admm_round", 256,
+                                         streamed=True) == 4 * (
+        51 * 256 + 48 + 2 * (16 * 36 + 2))
     assert fused_rounds.MAX_SMEM_BYTES == 227 * 1024
     limits = {("fused_admm_round", 6, 3): 2048,
               ("fused_structured_round", 4, 3): 2048,
               ("fused_structured_round", 3, 3): 2048,
-              ("fused_structured_round", 9, 9): 1200}
+              ("fused_structured_round", 9, 9): 1968}
     for (kernel, nb, r), limit in limits.items():
         assert fused_rounds.round_limit(kernel, nb, r) == limit
         plan = fused_rounds.round_plan(kernel, limit, nb, r)
@@ -830,22 +834,24 @@ def test_round_kernels_fit_two_blocks_per_sm_and_refuse_what_cannot_fit():
 
 def test_round_plan_is_the_smallest_cluster_and_forces_any_size():
     """The plan takes the smallest cluster that holds the knots, never
-    leaves a CTA empty and gives every CTA but the last k knots; a forced
-    cluster size (the wrappers' private ``_cluster``) takes exactly that
-    size or raises."""
+    leaves a CTA empty and gives every CTA but the last k knots, a
+    cluster's CTAs in the streamed layout (G and H in device memory); a
+    forced cluster size (the wrappers' private ``_cluster``) takes exactly
+    that size or raises."""
     for kernel, nb, r in (("fused_admm_round", 6, 3),
                           ("fused_structured_round", 9, 9)):
         for n in range(1, fused_rounds.round_limit(kernel, nb, r) + 1):
             c, k, smem = fused_rounds.round_plan(kernel, n, nb, r)
             assert k == -(-n // c) and (c - 1) * k < n <= c * k
-            assert smem == fused_rounds.round_smem_bytes(kernel, k, nb, r)
+            assert smem == fused_rounds.round_smem_bytes(kernel, k, nb, r,
+                                                         streamed=c > 1)
             if c > 1:
                 with pytest.raises(ValueError):
                     fused_rounds.round_plan(kernel, n, nb, r, cluster=c - 1)
     assert fused_rounds.round_plan("fused_admm_round", 256,
-                                   cluster=3) == (3, 86, 42504)
+                                   cluster=3) == (3, 86, 22360)
     assert fused_rounds.round_plan("fused_admm_round", 300) == (2, 150,
-                                                                73992)
+                                                                35416)
     with pytest.raises(ValueError, match="clusters of 9"):
         fused_rounds.round_plan("fused_admm_round", 256, cluster=9)
     with pytest.raises(ValueError):         # 3 CTAs of 1 knot and an empty
@@ -858,15 +864,21 @@ def cpp_constant(text: str, name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
-def cpp_round_plan(n, per_knot, tail, forced, consts):
-    """csrc/btri_sweep.cuh's round_plan, line for line."""
-    threads, cluster, smem_max = consts
+def cpp_round_plan(n, nb, own, tail, forced, consts):
+    """csrc/btri_sweep.cuh's round_plan and round_smem_bytes, line for
+    line (own: the kernel's floats a knot)."""
+    threads, cluster, smem_max, chunk, chunks = consts
     lo = forced if forced > 0 else 1
     hi = forced if forced > 0 else cluster
     c = lo
     while n >= 1 and c <= hi and c <= cluster:
         k = (n + c - 1) // c
-        smem = (per_knot * k + tail) * 4
+        streamed = c > 1
+        blocks = 0 if streamed else 2 * nb * nb
+        per_knot = blocks + 2 * nb + nb * (nb + 1) // 2 + own
+        ring = chunks * (chunk * ((nb * nb + 3) // 4 * 4) + 2) \
+            if streamed else 0
+        smem = (per_knot * k + tail + ring) * 4
         if (k + 31) // 32 * 32 <= threads and smem <= smem_max \
                 and (c - 1) * k < n:
             return c, k, smem
@@ -879,23 +891,30 @@ def test_round_plan_matches_the_launchers_plan():
     (csrc/btri_sweep.cuh), which refuse a launch whose plan differs, give
     the same plan: the constants and each kernel's per-knot and tail
     floats are read from the sources, the plan's arithmetic is the one
-    written there, and both agree at every N up to past the limits, for
-    every forced cluster size."""
+    written there, and both agree at every N up to one past the limits,
+    for every forced cluster size."""
     src = (kernels.CSRC / "btri_sweep.cuh").read_text()
     common = (kernels.CSRC / "common.cuh").read_text()
     k2 = (kernels.CSRC / "fused_admm_round.cu").read_text()
     k3 = (kernels.CSRC / "fused_structured_round.cu").read_text()
     consts = (cpp_constant(src, "kMaxRoundThreads"),
               cpp_constant(src, "kMaxClusterSize"),
-              cpp_constant(common, "kMaxSmemBytes"))
+              cpp_constant(common, "kMaxSmemBytes"),
+              cpp_constant(src, "kChunkKnots"),
+              cpp_constant(src, "kRingChunks"))
     assert consts == (fused_rounds.MAX_ROUND_THREADS,
-                      fused_rounds.MAX_CLUSTER, fused_rounds.MAX_SMEM_BYTES)
+                      fused_rounds.MAX_CLUSTER, fused_rounds.MAX_SMEM_BYTES,
+                      fused_rounds.CHUNK_KNOTS, fused_rounds.RING_CHUNKS)
     for expr in ("const int k = (n + c - 1) / c;",
                  "round_threads(k) <= kMaxRoundThreads",
                  "smem <= kMaxSmemBytes", "(c - 1) * k < n",
                  "c <= hi && c <= kMaxClusterSize",
-                 "2 * nb * nb + 2 * nb + tri_size(nb) + knot_floats",
-                 "(per_knot * n + tail_floats) * sizeof(float)"):
+                 "round_smem_bytes(k, nb, knot_floats, tail_floats, c > 1)",
+                 "const size_t blocks = streamed ? 0 : 2 * nb * nb;",
+                 "blocks + 2 * nb + tri_size(nb) + knot_floats",
+                 "streamed ? kRingChunks * (kChunkKnots * block_stride(nb)"
+                 " + 2) : 0;", "return (nb * nb + 3) / 4 * 4;",
+                 "(per_knot * n + tail_floats + ring) * sizeof(float)"):
         assert expr in src, expr
     assert "constexpr int kTpFloats = 3 * NB;" in k2
     assert "constexpr int kResidualFloats = 6 * kMaxRoundWarps;" in k2
@@ -905,16 +924,44 @@ def test_round_plan_matches_the_launchers_plan():
         ("fused_structured_round", nb, r, 2 * r * nb, 0)
         for nb, r in fused_rounds.ROUND_SHAPES]
     for kernel, nb, r, own, tail in cases:
-        per_knot = 2 * nb * nb + 2 * nb + nb * (nb + 1) // 2 + own
-        for n in list(range(1, 300)) + list(range(300, 2100, 7)):
+        for n in range(1, fused_rounds.round_limit(kernel, nb, r) + 2):
             for forced in range(0, 10):
-                want = cpp_round_plan(n, per_knot, tail, forced, consts)
+                want = cpp_round_plan(n, nb, own, tail, forced, consts)
                 try:
                     got = tuple(fused_rounds.round_plan(
                         kernel, n, nb, r, cluster=forced or None))
                 except ValueError:
                     got = (0, 0, 0)
                 assert got == want, (kernel, n, forced)
+
+
+@pytest.mark.parametrize("kernel,nb,r", [("fused_admm_round", 6, 3)] + [
+    ("fused_structured_round", nb, r) for nb, r in fused_rounds.ROUND_SHAPES])
+def test_round_plan_fits_a_cta_and_keeps_one_cta_where_it_holds(kernel, nb,
+                                                                 r):
+    """At every N up to the limit the plan's CTAs fit on the card (at most
+    232,448 bytes of shared memory and 256 threads each), none is empty,
+    and wherever one CTA holds the knots (256 of them; 150 at (9, 9)) the
+    plan is that CTA, with the bytes of the one-CTA layout: the main
+    path's launches do not change. The cluster's scratch buffer holds G
+    and H of every knot of every scenario (2 B N nb^2 floats)."""
+    one_cta = 150 if (nb, r) == (9, 9) else fused_rounds.MAX_ROUND_THREADS
+    for n in range(1, fused_rounds.round_limit(kernel, nb, r) + 1):
+        plan = fused_rounds.round_plan(kernel, n, nb, r)
+        assert plan.smem <= fused_rounds.MAX_SMEM_BYTES == 232448
+        assert plan.knots <= fused_rounds.MAX_ROUND_THREADS
+        assert (plan.cluster - 1) * plan.knots < n <= plan.cluster * plan.knots
+        if n <= one_cta:
+            assert plan == (1, n, fused_rounds.round_smem_bytes(kernel, n, nb,
+                                                                r))
+        else:
+            assert plan.cluster > 1
+        scratch = fused_rounds.round_scratch(plan, n, nb, 3, "cpu")
+        if plan.cluster == 1:
+            assert scratch is None
+        else:
+            assert scratch.shape == (
+                2 * 3 * n * fused_rounds.block_stride(nb),)
 
 
 def test_round_kernel_takes_the_tension_shape():

@@ -83,7 +83,7 @@ def test_k2_round_plain_matches_pallas_at_300_knots():
     args, want = k2_case(300, 5)
     assert args[1].shape == (300, 6, 6, 2)
     assert fused_rounds.round_plan("fused_admm_round", 300) == (2, 150,
-                                                                73992)
+                                                                35416)
     got = fused_rounds.fused_admm_round(*args)
     for a, b in zip(got, want):
         assert a.shape == tuple(b.shape)

@@ -1,9 +1,9 @@
 // Device functions shared by the ADMM-round kernels K2 and K3: one thread
-// per knot, the whole round resident in shared memory and registers. A
-// scenario takes one thread block (CTA) or, past what one CTA holds, a
-// thread block cluster of c CTAs (c <= 8): CTA rank j holds knots
-// [j k, j k + k) in its own shared memory and reads its neighbours' edge
-// knots through distributed shared memory (Hopper's DSMEM).
+// per knot, the round resident in shared memory and registers. A scenario
+// takes one thread block (CTA) or, past what one CTA holds, a thread block
+// cluster of c CTAs (c <= 8): CTA rank j holds knots [j k, j k + k) in its
+// own shared memory and reads its neighbours' edge knots through
+// distributed shared memory (Hopper's DSMEM).
 //
 // The block-tridiagonal solve of every iteration,
 //   y_i  = Cinv_i (rhs_i - W_i y_{i-1})            forward sweep
@@ -16,14 +16,32 @@
 //   vt_i = e_i - H_i vt_{i+1}                      sequential
 // with G_0 = H_{n-1} = 0. Lanes 0..nb-1 of warp 0 walk the knots, lane r
 // owning row r; the previous step's vector reaches every lane by
-// __shfl_sync, and every operand is read from shared memory. In a cluster
-// the CTAs walk their runs in turn, rank 0 up on the way forward and down
-// on the way back, with a cluster barrier between turns: each starts from
-// its neighbour's edge knot, the same float the one-CTA walk carries in a
-// register, so the steps, their order and their results do not depend on c.
+// __shfl_sync. In a cluster the CTAs walk their runs in turn, rank 0 up on
+// the way forward and down on the way back, with a cluster barrier between
+// turns: each starts from its neighbour's edge knot, the same float the
+// one-CTA walk carries in a register, so the steps, their order and their
+// results do not depend on c.
+//
+// What bounds a cluster launch is how many scenarios' walks the card holds
+// at once: a scenario's CTAs keep its whole round resident while only 6
+// lanes walk, so a launch of more scenarios than fit runs in waves, each
+// as long as one scenario's walk. So the cluster instantiation keeps G and
+// H out of shared memory (72 of K2's 123 floats a knot): each CTA writes
+// its knots' blocks once to a scratch buffer in device memory (the
+// wrapper's, (2, B, n, bs) with bs = nb^2 rounded up to 4 floats), and
+// the walk reads them back through a ring of kRingChunks chunks of
+// kChunkKnots blocks in shared memory, each chunk one bulk copy (TMA)
+// that completes on its own mbarrier, started kRingChunks - 1 chunks ahead;
+// the walk over a full chunk is unrolled. Each kernel's cluster entry point
+// is also built for fewer registers than its one-CTA one (__launch_bounds__
+// with a count of CTAs an SM should hold), and its launches ask for the
+// SM's largest shared-memory carveout. The one-CTA kernels keep every
+// block in shared memory, as below, and their code.
 //
 // Shared memory of one CTA, in floats, for k knots per CTA:
-//   G, H  (k, nb, nb) row-major per knot   read by the sweep lanes
+//   ring  (kRingChunks, kChunkKnots, bs)   a cluster only: the walk's blocks
+//   bars  kRingChunks mbarriers (8 bytes)  a cluster only: one a chunk
+//   G, H  (k, nb, nb) row-major per knot   one CTA only: read by the walk
 //   D     (k, nb)                          d, then y, then e, then vt
 //   X     (nb, k)                          a vector handed to knot i-1
 //   ci    (nb (nb + 1) / 2, k)             lower triangle of Cinv_i
@@ -50,6 +68,10 @@ constexpr int kMaxRoundThreads = 256;
 constexpr int kMaxRoundWarps = kMaxRoundThreads / 32;
 // The most CTAs of one cluster that every Hopper part schedules (portable).
 constexpr int kMaxClusterSize = 8;
+// A cluster CTA's ring: kRingChunks chunks of kChunkKnots knots' blocks;
+// the walk reads chunk q while chunks q + 1 .. q + kRingChunks - 1 load.
+constexpr int kChunkKnots = 16;
+constexpr int kRingChunks = 2;
 
 __host__ __device__ constexpr int tri_size(int nb) { return nb * (nb + 1) / 2; }
 
@@ -58,10 +80,21 @@ __host__ __device__ constexpr int tri(int r, int j) { return r * (r + 1) / 2 + j
 
 inline int round_threads(int n) { return (n + 31) / 32 * 32; }
 
+// Floats between two knots' blocks in a cluster's scratch and ring: nb^2
+// rounded up to whole 16-byte units, as the bulk copies need.
+__host__ __device__ constexpr int block_stride(int nb) {
+  return (nb * nb + 3) / 4 * 4;
+}
+
+// Shared memory of one CTA holding n knots: the one-CTA layout, or with
+// `streamed` a cluster CTA's (G and H in device memory, the ring here).
 inline size_t round_smem_bytes(int n, int nb, int knot_floats,
-                               int tail_floats) {
-  const size_t per_knot = 2 * nb * nb + 2 * nb + tri_size(nb) + knot_floats;
-  return (per_knot * n + tail_floats) * sizeof(float);
+                               int tail_floats, bool streamed) {
+  const size_t blocks = streamed ? 0 : 2 * nb * nb;
+  const size_t per_knot = blocks + 2 * nb + tri_size(nb) + knot_floats;
+  const size_t ring =
+      streamed ? kRingChunks * (kChunkKnots * block_stride(nb) + 2) : 0;
+  return (per_knot * n + tail_floats + ring) * sizeof(float);
 }
 
 // A round's launch plan: c CTAs per scenario (a cluster when c > 1), k
@@ -75,15 +108,20 @@ struct RoundPlan {
 
 // The plan for n knots: the smallest c in 1..kMaxClusterSize whose CTAs
 // hold k = ceil(n / c) knots each in at most kMaxRoundThreads threads and
-// kMaxSmemBytes bytes with no CTA left empty, or exactly c = `forced` when
-// forced > 0. Twin of fused_rounds.round_plan.
+// kMaxSmemBytes bytes (the one-CTA layout at c = 1, the streamed one
+// above) with no CTA left empty, or exactly c = `forced` when forced > 0.
+// Past one CTA the smallest c is also the most resident: the registers
+// bind (the cluster kernels' __launch_bounds__), and k = ceil(n / c)
+// wastes the fewest threads to a ragged last warp. Twin of
+// fused_rounds.round_plan.
 inline RoundPlan round_plan(int n, int nb, int knot_floats, int tail_floats,
                             int forced) {
   const int lo = forced > 0 ? forced : 1;
   const int hi = forced > 0 ? forced : kMaxClusterSize;
   for (int c = lo; n >= 1 && c <= hi && c <= kMaxClusterSize; ++c) {
     const int k = (n + c - 1) / c;
-    const size_t smem = round_smem_bytes(k, nb, knot_floats, tail_floats);
+    const size_t smem =
+        round_smem_bytes(k, nb, knot_floats, tail_floats, c > 1);
     if (round_threads(k) <= kMaxRoundThreads && smem <= kMaxSmemBytes &&
         (c - 1) * k < n)
       return RoundPlan{c, k, smem};
@@ -92,12 +130,14 @@ inline RoundPlan round_plan(int n, int nb, int knot_floats, int tail_floats,
 }
 
 // The launch configuration check: 0 if the caller's plan (cluster, knots,
-// smem_bytes) is the plan round_plan gives, else the error to return
-// without launching.
+// smem_bytes) is the plan round_plan gives and a cluster plan has its
+// scratch buffer, else the error to return without launching.
 inline int round_config_error(const RoundPlan& plan, int batch, int cluster,
-                              int knots, int smem_bytes) {
+                              int knots, int smem_bytes,
+                              const float* scratch) {
   if (plan.cluster < 1 || batch < 1 || plan.cluster != cluster ||
-      plan.knots != knots || plan.smem != static_cast<size_t>(smem_bytes))
+      plan.knots != knots || plan.smem != static_cast<size_t>(smem_bytes) ||
+      (plan.cluster > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -119,6 +159,12 @@ int launch_round(void (*one)(Args), void (*clustered)(Args),
     kernel<<<batch, threads, smem, stream>>>(a);
     return launch_status();
   }
+  // The most shared memory an SM gives its CTAs, so that the occupancy the
+  // registers allow is not cut by an L1-sized carveout.
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * plan.cluster);
   cfg.blockDim = dim3(threads);
@@ -216,22 +262,61 @@ __device__ __forceinline__ const float* prev_row(const Span<Cluster>& sp,
   return D + (il - 1) * nb;
 }
 
-template <int NB>
+// The round's arrays for one CTA (s: its dynamic shared memory). Without
+// a cluster G and H sit in shared memory; in a cluster they point at this
+// CTA's first knot in the launch's scratch (2, B, n, bs) in device memory,
+// and the walk reads them through `ring`.
+template <int NB, bool Cluster>
 struct SweepSmem {
+  // floats from one knot's G (or H) to the next's
+  static constexpr int kStride = Cluster ? block_stride(NB) : NB * NB;
   float* G;
   float* H;
   float* D;
   float* X;
   float* ci;
+  float* ring;
+  uint64_t* bars;
   float* rest;  // the kernel's own blocks
-  __device__ SweepSmem(float* s, int n)
-      : G(s),
-        H(s + NB * NB * n),
-        D(s + 2 * NB * NB * n),
-        X(s + (2 * NB * NB + NB) * n),
-        ci(s + (2 * NB * NB + 2 * NB) * n),
-        rest(s + (2 * NB * NB + 2 * NB + tri_size(NB)) * n) {}
+  // n: the scenario's knots, batch: the launch's scenarios
+  __device__ SweepSmem(float* s, const Span<Cluster>& sp, int n, int batch,
+                       float* scratch) {
+    const int k = sp.k;
+    if constexpr (Cluster) {
+      G = scratch + (static_cast<size_t>(sp.b) * n + sp.base) * kStride;
+      H = scratch +
+          (static_cast<size_t>(batch + sp.b) * n + sp.base) * kStride;
+      ring = s;
+      s += kRingChunks * kChunkKnots * kStride;
+      bars = reinterpret_cast<uint64_t*>(s);
+      s += 2 * kRingChunks;
+    } else {
+      G = s;
+      H = s + NB * NB * k;
+      ring = nullptr;
+      bars = nullptr;
+      s += 2 * NB * NB * k;
+    }
+    D = s;
+    X = s + NB * k;
+    ci = s + 2 * NB * k;
+    rest = s + (2 * NB + tri_size(NB)) * k;
+  }
 };
+
+// Called by every thread of a cluster CTA after it has written its knots'
+// G and H and before the barrier that ends the load phase: orders those
+// writes before the ring's bulk copies, and sets up the ring's barriers.
+template <int NB, bool Cluster>
+__device__ __forceinline__ void ready_ring(const SweepSmem<NB, Cluster>& S) {
+  if constexpr (Cluster) {
+    fence_async();
+    if (threadIdx.x == 0) {
+      for (int q = 0; q < kRingChunks; ++q) barrier_init(S.bars + q);
+      fence_barrier_init();
+    }
+  }
+}
 
 // Load local knot i's Cinv (its lower triangle) from device memory, where
 // element (r, c) sits at ci_g[(r NB + c) stride], into registers and shared
@@ -239,8 +324,8 @@ struct SweepSmem {
 // and store G_i = Cinv_i Wp_i and H_i = Cinv_i^T Wp_{i+1}^T (a null Wp gives
 // the zero block). One column of G and one row of Wp_{i+1} at a time, so
 // that only NB of the Wp values are live at once.
-template <int NB>
-__device__ void load_knot_factors(const SweepSmem<NB>& S, int n, int i,
+template <int NB, bool C>
+__device__ void load_knot_factors(const SweepSmem<NB, C>& S, int n, int i,
                                   const float* ci_g, const float* wp_i,
                                   const float* wp_n, size_t stride) {
   float cl[tri_size(NB)];
@@ -251,8 +336,8 @@ __device__ void load_knot_factors(const SweepSmem<NB>& S, int n, int i,
       cl[tri(r, j)] = ci_g[(r * NB + j) * stride];
       S.ci[tri(r, j) * n + i] = cl[tri(r, j)];
     }
-  float* G = S.G + i * NB * NB;
-  float* H = S.H + i * NB * NB;
+  float* G = S.G + i * S.kStride;
+  float* H = S.H + i * S.kStride;
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
     float w[NB];  // column c of Wp_i
@@ -280,8 +365,8 @@ __device__ void load_knot_factors(const SweepSmem<NB>& S, int n, int i,
 }
 
 // D_i = Cinv_i x (knot i's thread).
-template <int NB>
-__device__ __forceinline__ void store_ci_mul(const SweepSmem<NB>& S, int n,
+template <int NB, bool C>
+__device__ __forceinline__ void store_ci_mul(const SweepSmem<NB, C>& S, int n,
                                              int i, const float x[NB]) {
   const float* cl = S.ci + i;
 #pragma unroll
@@ -294,8 +379,8 @@ __device__ __forceinline__ void store_ci_mul(const SweepSmem<NB>& S, int n,
 }
 
 // D_i = Cinv_i^T D_i (knot i's thread).
-template <int NB>
-__device__ __forceinline__ void ci_t_mul_in_place(const SweepSmem<NB>& S,
+template <int NB, bool C>
+__device__ __forceinline__ void ci_t_mul_in_place(const SweepSmem<NB, C>& S,
                                                   int n, int i) {
   const float* cl = S.ci + i;
   float y[NB];
@@ -361,23 +446,110 @@ __device__ __forceinline__ void sweep(const float* M, float* D, int n,
   }
 }
 
+// The steps of sweep() over one chunk of a cluster CTA's ring: len <=
+// kChunkKnots knots from local knot i on, their rows at row0 +
+// t row_step (t = 0 .. len-1), x the vector carried from step to step.
+// Unrolled, so a full chunk (len == kChunkKnots) has no loop.
+template <int NB>
+__device__ __forceinline__ void walk_chunk(const float* row0, int row_step,
+                                           float* D, int& i, int step,
+                                           int lane, float& x, int len) {
+  constexpr unsigned mask = (1u << NB) - 1u;
+  float m[NB], d = D[i * NB + lane];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) m[j] = row0[j];
+#pragma unroll
+  for (int t = 0; t < kChunkKnots; ++t) {
+    if (t < len) {
+      const int cur = i;
+      float mc[NB], xp[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) mc[j] = m[j];
+      const float dc = d;
+      i += step;
+      if (t + 1 < len) {
+        d = D[i * NB + lane];
+        const float* r = row0 + (t + 1) * row_step;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) m[j] = r[j];
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) xp[j] = __shfl_sync(mask, x, j);
+      x = sub_dot<NB>(dc, mc, xp);
+      D[cur * NB + lane] = x;
+    }
+  }
+}
+
+// sweep() in a cluster CTA: the same steps in the same order, with M_i
+// read from device memory (M + i bs, the CTA's local knot i) through the
+// ring. The walk takes its knots in chunks of kChunkKnots; lane 0 copies
+// chunk q + kRingChunks - 1 into the slot chunk q - 1 left, once every
+// lane has read that (__syncwarp), and each lane waits for chunk q's
+// barrier before reading it. `phase` holds each slot barrier's parity
+// across sweeps.
+template <int NB>
+__device__ __forceinline__ void sweep_streamed(const float* M, float* ring,
+                                               uint64_t* bars,
+                                               unsigned& phase, float* D,
+                                               int n, int lane, bool forward,
+                                               float x0) {
+  constexpr unsigned mask = (1u << NB) - 1u;
+  constexpr int C = kChunkKnots, P = kRingChunks, BS = block_stride(NB);
+  const int step = forward ? 1 : -1;
+  const int chunks = (n + C - 1) / C;
+  auto fetch = [&](int q) {  // lane 0: chunk q into slot q % P
+    if (q < chunks) {
+      const int len = min(C, n - q * C);
+      const int lo = forward ? q * C : n - q * C - len;
+      bulk_load(ring + (q % P) * (C * BS), M + static_cast<size_t>(lo) * BS,
+                static_cast<unsigned>(len * BS * sizeof(float)),
+                bars + q % P);
+    }
+  };
+  if (lane == 0)
+    for (int q = 0; q < P - 1; ++q) fetch(q);
+  float x = x0;
+  int i = forward ? 0 : n - 1;
+  for (int q = 0; q < chunks; ++q) {
+    if (q > 0) __syncwarp(mask);
+    if (lane == 0) fetch(q + P - 1);
+    const int slot = q % P;
+    barrier_wait(bars + slot, (phase >> slot) & 1u);
+    phase ^= 1u << slot;
+    // the chunk's blocks lie in memory order: walked up, or down from the
+    // last
+    const int len = min(C, n - q * C);
+    const float* blk = ring + slot * (C * BS) + lane * NB;
+    const float* row0 = forward ? blk : blk + (len - 1) * BS;
+    const int row_step = forward ? BS : -BS;
+    if (len == C)
+      walk_chunk<NB>(row0, row_step, D, i, step, lane, x, C);
+    else
+      walk_chunk<NB>(row0, row_step, D, i, step, lane, x, len);
+  }
+}
+
 // Both sweeps of one solve, D = d on entry and vt on return; every thread
 // of every CTA of the scenario calls it (il: the thread's local knot). The
 // barriers separate the CTAs' turns, the sweeps from the parallel step
 // between them and from the callers' phases; without a cluster they are
 // the CTA's three.
 template <int NB, bool Cluster>
-__device__ __forceinline__ void solve_in_place(const SweepSmem<NB>& S,
-                                               const Span<Cluster>& sp,
-                                               int il) {
+__device__ __forceinline__ void solve_in_place(
+    const SweepSmem<NB, Cluster>& S, const Span<Cluster>& sp, int il,
+    unsigned& phase) {
   const int lane = threadIdx.x;
   for (int r = 0; r < sp.size; ++r) {
     if (sp.rank == r && lane < NB) {
-      float x0 = 0.f;
       if constexpr (Cluster) {
-        if (r > 0) x0 = peer(S.D, r - 1)[(sp.k - 1) * NB + lane];
+        const float x0 =
+            r > 0 ? peer(S.D, r - 1)[(sp.k - 1) * NB + lane] : 0.f;
+        sweep_streamed<NB>(S.G, S.ring, S.bars, phase, S.D, sp.count, lane,
+                           true, x0);
+      } else {
+        sweep<NB>(S.G, S.D, sp.count, lane, true, 0.f);
       }
-      sweep<NB>(S.G, S.D, sp.count, lane, true, x0);
     }
     knot_sync<Cluster>();
   }
@@ -385,11 +557,13 @@ __device__ __forceinline__ void solve_in_place(const SweepSmem<NB>& S,
   __syncthreads();
   for (int r = sp.size - 1; r >= 0; --r) {
     if (sp.rank == r && lane < NB) {
-      float x0 = 0.f;
       if constexpr (Cluster) {
-        if (r + 1 < sp.size) x0 = peer(S.D, r + 1)[lane];
+        const float x0 = r + 1 < sp.size ? peer(S.D, r + 1)[lane] : 0.f;
+        sweep_streamed<NB>(S.H, S.ring, S.bars, phase, S.D, sp.count, lane,
+                           false, x0);
+      } else {
+        sweep<NB>(S.H, S.D, sp.count, lane, false, 0.f);
       }
-      sweep<NB>(S.H, S.D, sp.count, lane, false, x0);
     }
     knot_sync<Cluster>();
   }

@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace pathopt {
 
@@ -40,6 +41,60 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// This thread's shared-memory address of p.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A shared-memory barrier (mbarrier) that one arrival and the bytes of the
+// copies expected on it complete. Make it visible before use
+// (fence_barrier_init, then a barrier of the threads).
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Order this thread's earlier writes before bulk copies (the async proxy)
+// that read them, once a barrier has passed.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+// One bulk copy (the Tensor Memory Accelerator) of `bytes` (a multiple of
+// 16, both addresses 16-byte aligned) from device memory into this CTA's
+// shared memory, completing the current phase of `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // max(|a|, m) that propagates NaN like jnp.max / torch.amax do.

@@ -50,12 +50,21 @@
 // of warp 0, one row per lane. Nothing is written to device memory before
 // the last iteration ends.
 // Past 256 knots a scenario takes a cluster of c CTAs (btri_sweep.cuh; c = 2
-// at 512 knots, 126,144 bytes each; at most 8 CTAs, 2048 knots): the
-// barriers around the neighbour exchanges become cluster barriers, the
-// edge knots' neighbours are read from the next or previous CTA's shared
-// memory, the sweeps pass from CTA to CTA, and the residual maxima of the
-// CTAs are combined by rank 0. The arithmetic is the one-CTA kernel's, in
-// the same order, so the results are bit for bit the same at any c.
+// at 512 knots, c = 4 at 1024; at most 8 CTAs, 2048 knots): the barriers
+// around the neighbour exchanges become cluster barriers, the edge knots'
+// neighbours are read from the next or previous CTA's shared memory, the
+// sweeps pass from CTA to CTA, and the residual maxima of the CTAs are
+// combined by rank 0. The arithmetic is the one-CTA kernel's, in the same
+// order, so the results are bit for bit the same at any c.
+// A cluster launch is bound by how many scenarios' walks the card holds at
+// once, not by bytes: with the one-CTA layout (126,144 bytes at 256 knots)
+// one CTA fits an SM, and 256 scenarios of 512 knots run in 4 waves of 66,
+// each as long as one scenario's 25,600 steps. So the cluster CTAs keep G
+// and H in a device-memory scratch buffer and stream them to the walk
+// through a ring of bulk copies (btri_sweep.cuh): 51 floats a knot of
+// shared memory instead of 123 (57,040 bytes at 256 knots), and 64
+// registers a thread, so 4 CTAs of 256 threads share an SM and 512 knots x
+// 256 scenarios fit in one wave.
 #include "btri_sweep.cuh"
 
 namespace pathopt {
@@ -66,6 +75,9 @@ constexpr int NB = 6;
 // and the residual reduction's 6 maxima per warp.
 constexpr int kTpFloats = 3 * NB;
 constexpr int kResidualFloats = 6 * kMaxRoundWarps;
+// CTAs of 256 threads an SM holds that the cluster kernel is built for: 64
+// registers a thread, so that 4 CTAs of 57,040 bytes share an SM.
+constexpr int kClusterMinBlocks = 4;
 
 struct PathArgs {
   const float* cc;    // (N, 2, 2, B) collision rows: [row][v0, v1]
@@ -86,6 +98,7 @@ struct PathArgs {
   float* yk;
   float* ye;
   float* res;         // (4, B)
+  float* scratch;     // (2, B, N, 6, 6) G and H of a cluster launch, else null
   int n, batch, iters;
   float alpha, one_minus_alpha, sigma;
   int knots;          // per CTA: the launch plan's k
@@ -146,16 +159,16 @@ __device__ __forceinline__ void a_mul_knot(const float* tp, int k,
   z[5] = c.r0 * v[0] + c.r1 * v[1] + v[5];
 }
 
+// The round: one CTA per scenario, or one CTA of a scenario's cluster.
 template <bool Cluster>
-__global__ void __launch_bounds__(kMaxRoundThreads)
-fused_admm_round_kernel(PathArgs p) {
+__device__ __forceinline__ void admm_round(PathArgs p) {
   extern __shared__ float smem[];
   const Span<Cluster> sp(p.n, p.knots);
   // i: the thread's knot, il: its place in this CTA, k: the CTA's stride
   const int n = p.n, k = sp.k, b = sp.b, il = threadIdx.x, i = sp.base + il;
   const bool own = il < sp.count;
   const size_t B = p.batch;
-  const SweepSmem<NB> S(smem, k);
+  const SweepSmem<NB, Cluster> S(smem, sp, n, p.batch, p.scratch);
   float* const tp_s = S.rest + il;  // knot i's (3, 6) block, stride k
   float* const red = S.rest + kTpFloats * k;
   auto k6 = [&](int j, int r) { return (static_cast<size_t>(j) * NB + r) * B + b; };
@@ -197,7 +210,9 @@ fused_admm_round_kernel(PathArgs p) {
     lbk[r] = p.lbk[q];
     ubk[r] = p.ubk[q];
   }
+  ready_ring(S);
   knot_sync<Cluster>();
+  unsigned ring_phase = 0;  // the ring barriers' parities (a cluster's)
 
   for (int it = 0; it < p.iters; ++it) {
     // ---- rhs = sigma v + A^T (rho z - y), then d = Cinv rhs ----
@@ -221,7 +236,7 @@ fused_admm_round_kernel(PathArgs p) {
     __syncthreads();
 
     // ---- the two sweeps: D = vt ----
-    solve_in_place<NB>(S, sp, il);
+    solve_in_place<NB>(S, sp, il, ring_phase);
 
     // ---- A vt, relaxed projection and dual update, knot by knot ----
     if (own) {
@@ -349,31 +364,44 @@ fused_admm_round_kernel(PathArgs p) {
   }
 }
 
+__global__ void __launch_bounds__(kMaxRoundThreads)
+fused_admm_round_kernel(PathArgs p) {
+  admm_round<false>(p);
+}
+
+__global__ void __launch_bounds__(kMaxRoundThreads, kClusterMinBlocks)
+fused_admm_round_cluster_kernel(PathArgs p) {
+  admm_round<true>(p);
+}
+
 }  // namespace
 }  // namespace pathopt
 
 // Returns the cudaError_t of the launch (0 on success). (cluster, knots,
 // smem_bytes) must be the launch plan for n knots (round_plan, or with
 // `forced` > 0 the plan at exactly that cluster size; fused_rounds.round_plan
-// in Python computes the same): any other plan, a shape no plan takes or a
-// batch of 0 returns cudaErrorInvalidValue without launching.
+// in Python computes the same): any other plan, a shape no plan takes, a
+// batch of 0 or a cluster plan without `scratch` (2 B n 36 floats, device
+// memory the launch may overwrite) returns cudaErrorInvalidValue without
+// launching.
 extern "C" int pathopt_fused_admm_round(
     const float* cc, const float* Ci, const float* Wp, const float* tp,
     const float* lbk, const float* ubk, const float* lbe, const float* ube,
     const float* rk, const float* re, const int* end_idx, const float* pd,
-    float* v, float* zk, float* ze, float* yk, float* ye, float* res, int n,
-    int batch, int iters, int cluster, int knots, int forced, int smem_bytes,
+    float* v, float* zk, float* ze, float* yk, float* ye, float* res,
+    float* scratch, int n, int batch, int iters, int cluster, int knots,
+    int forced, int smem_bytes,
     float alpha, float one_minus_alpha, float sigma, void* stream) {
   using namespace pathopt;
   const RoundPlan plan =
       round_plan(n, NB, kTpFloats, kResidualFloats, forced);
-  if (const int err =
-          round_config_error(plan, batch, cluster, knots, smem_bytes))
+  if (const int err = round_config_error(plan, batch, cluster, knots,
+                                        smem_bytes, scratch))
     return err;
   PathArgs a{cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx, pd,
-             v, zk, ze, yk, ye, res, n, batch, iters, alpha,
+             v, zk, ze, yk, ye, res, scratch, n, batch, iters, alpha,
              one_minus_alpha, sigma, knots};
-  return launch_round(fused_admm_round_kernel<false>,
-                      fused_admm_round_kernel<true>, plan, batch, a,
+  return launch_round(fused_admm_round_kernel,
+                      fused_admm_round_cluster_kernel, plan, batch, a,
                       static_cast<cudaStream_t>(stream));
 }

@@ -38,11 +38,16 @@
 // block loop unrolls.
 // Past what one CTA holds (256 knots; 150 at (9, 9), 232,200 bytes) a
 // scenario takes a cluster of c CTAs, as in K2 (btri_sweep.cuh): at most 8,
-// so 2048 knots at (4, 3) and (3, 3) and 1200 at (9, 9). Cluster barriers
+// so 2048 knots at (4, 3) and (3, 3) and 1968 at (9, 9). Cluster barriers
 // replace the CTA's around the neighbour exchanges, the edge knots read
 // their neighbours from the next or previous CTA, and the sweeps pass from
 // CTA to CTA, in the one-CTA order: the results are bit for bit the same
-// at any c.
+// at any c. As in K2, a cluster CTA streams G and H from a device-memory
+// scratch buffer through a ring, and (4, 3) and (3, 3) are built for 80
+// registers a thread, so that one wave holds the 256 scenarios of the long
+// route's (4, 3) N 384 and (3, 3) N 300. (9, 9) keeps
+// its registers (255; with fewer its state would spill more); the ring
+// still lifts its limit from 150 knots a CTA to 246.
 #include "btri_sweep.cuh"
 
 namespace pathopt {
@@ -60,21 +65,28 @@ struct StructArgs {
   float* v;
   float* z;
   float* y;
+  float* scratch;  // (2, B, N, bs) G and H of a cluster launch, else null
   int n, batch, iters;
   float alpha, one_minus_alpha, sigma;
   int knots;  // per CTA: the launch plan's k
 };
 
+// CTAs of 256 threads an SM holds that the cluster kernel at (NB, R) is
+// built for: 3 at (4, 3) and (3, 3), 80 registers a thread (so 4 CTAs of
+// the long route's 192 and 160 threads), and 1 at (9, 9).
+template <int NB, int R>
+constexpr int kClusterBlocks = NB * R <= 12 ? 3 : 1;
+
+// The round: one CTA per scenario, or one CTA of a scenario's cluster.
 template <int NB, int R, bool Cluster>
-__global__ void __launch_bounds__(kMaxRoundThreads)
-fused_structured_round_kernel(StructArgs p) {
+__device__ __forceinline__ void structured_round(StructArgs p) {
   extern __shared__ float smem[];
   const Span<Cluster> sp(p.n, p.knots);
   // i: the thread's knot, il: its place in this CTA, k: the CTA's stride
   const int n = p.n, k = sp.k, b = sp.b, il = threadIdx.x, i = sp.base + il;
   const bool own = il < sp.count;
   const size_t B = p.batch;
-  const SweepSmem<NB> S(smem, k);
+  const SweepSmem<NB, Cluster> S(smem, sp, n, p.batch, p.scratch);
   // knot i's a_cur and a_prev blocks, element (r, c) at [(r NB + c) k]
   const float* const ac_s = S.rest + il;
   const float* const ap_s = S.rest + R * NB * k + il;
@@ -109,7 +121,9 @@ fused_structured_round_kernel(StructArgs p) {
       a_s[(R * NB + e) * k] = p.ap[g];
     }
   }
+  ready_ring(S);
   knot_sync<Cluster>();
+  unsigned ring_phase = 0;  // the ring barriers' parities (a cluster's)
 
   for (int it = 0; it < p.iters; ++it) {
     // ---- rhs = sigma v - q + A^T (rho z - y), then d = Cinv rhs ----
@@ -143,7 +157,7 @@ fused_structured_round_kernel(StructArgs p) {
     __syncthreads();
 
     // ---- the two sweeps: D = vt ----
-    solve_in_place<NB>(S, sp, il);
+    solve_in_place<NB>(S, sp, il, ring_phase);
 
     // ---- A vt, relaxed projection and dual update ----
     if (own) {
@@ -187,14 +201,26 @@ fused_structured_round_kernel(StructArgs p) {
 }
 
 template <int NB, int R>
+__global__ void __launch_bounds__(kMaxRoundThreads)
+fused_structured_round_kernel(StructArgs p) {
+  structured_round<NB, R, false>(p);
+}
+
+template <int NB, int R>
+__global__ void __launch_bounds__(kMaxRoundThreads, kClusterBlocks<NB, R>)
+fused_structured_round_cluster_kernel(StructArgs p) {
+  structured_round<NB, R, true>(p);
+}
+
+template <int NB, int R>
 int launch_structured(const StructArgs& a, int smem_bytes, int cluster,
                       int forced, cudaStream_t stream) {
   const RoundPlan plan = round_plan(a.n, NB, 2 * R * NB, 0, forced);
-  if (const int err =
-          round_config_error(plan, a.batch, cluster, a.knots, smem_bytes))
+  if (const int err = round_config_error(plan, a.batch, cluster, a.knots,
+                                        smem_bytes, a.scratch))
     return err;
-  return launch_round(fused_structured_round_kernel<NB, R, false>,
-                      fused_structured_round_kernel<NB, R, true>, plan,
+  return launch_round(fused_structured_round_kernel<NB, R>,
+                      fused_structured_round_cluster_kernel<NB, R>, plan,
                       a.batch, a, stream);
 }
 
@@ -205,15 +231,17 @@ int launch_structured(const StructArgs& a, int smem_bytes, int cluster,
 // than (4, 3), (3, 3) or (9, 9), a (cluster, knots, smem_bytes) other than
 // the launch plan for n knots (round_plan, or with `forced` > 0 the plan at
 // exactly that cluster size; fused_rounds.round_plan in Python computes the
-// same), a shape no plan takes or a batch of 0 returns
-// cudaErrorInvalidValue without launching.
+// same), a shape no plan takes, a batch of 0 or a cluster plan without
+// `scratch` (2 B n bs floats, bs = nb^2 rounded up to a multiple of 4;
+// device memory the launch may overwrite)
+// returns cudaErrorInvalidValue without launching.
 extern "C" int pathopt_fused_structured_round(
     const float* Ci, const float* Wp, const float* ac, const float* ap,
     const float* q, const float* lb, const float* ub, const float* rho,
-    float* v, float* z, float* y, int n, int nb, int r, int batch, int iters,
-    int cluster, int knots, int forced, int smem_bytes, float alpha,
-    float one_minus_alpha, float sigma, void* stream) {
-  pathopt::StructArgs a{Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
+    float* v, float* z, float* y, float* scratch, int n, int nb, int r,
+    int batch, int iters, int cluster, int knots, int forced, int smem_bytes,
+    float alpha, float one_minus_alpha, float sigma, void* stream) {
+  pathopt::StructArgs a{Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y, scratch,
                         n, batch, iters, alpha, one_minus_alpha, sigma,
                         knots};
   auto s = static_cast<cudaStream_t>(stream);

@@ -211,9 +211,9 @@ def lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
         L.pathopt_fused_admm_round.argtypes = (
-            [p] * 18 + [i] * 7 + [f] * 3 + [p])
+            [p] * 19 + [i] * 7 + [f] * 3 + [p])
         L.pathopt_fused_structured_round.argtypes = (
-            [p] * 11 + [i] * 9 + [f] * 3 + [p])
+            [p] * 12 + [i] * 9 + [f] * 3 + [p])
         L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]
         u64 = ctypes.c_ulonglong
         L.pathopt_graph_versions.argtypes = [p, p]
@@ -247,6 +247,11 @@ def stream_ptr(device) -> int:
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def ptr_or_null(t: torch.Tensor | None) -> int | None:
+    """A tensor's pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def expect(name: str, t: torch.Tensor, shape, dtype, device):

@@ -22,11 +22,13 @@ one per block row, with 2, 4 or 8 neighbouring scenarios in one warp; K2
 and K3 give each scenario one thread per knot and hold the whole round in
 shared memory: one thread block while it holds the knots (256 of them; 150
 at K3's (9, 9)), else a thread block cluster of up to 8 CTAs, each holding
-a run of knots (:func:`round_plan`). So K2 takes up to 2048 knots, K3 2048
-at (4, 3) and (3, 3) and 1200 at (9, 9). A wrapper given CPU tensors runs
-the plain version; given CUDA tensors it launches its kernel on the current
-stream or raises, also at a block shape its kernel is not built for and
-past those limits. There is no fallback between the two.
+a run of knots and streaming the sweep's blocks from a scratch buffer
+(:func:`round_plan`, :func:`round_scratch`). So K2 takes up to 2048
+knots, K3 2048 at (4, 3) and (3, 3) and 1968 at (9, 9). A wrapper given
+CPU tensors runs the plain version; given CUDA tensors it launches its
+kernel on the current stream or raises, also at a block shape its kernel
+is not built for and past those limits. There is no fallback between the
+two.
 """
 
 from __future__ import annotations
@@ -59,21 +61,36 @@ def unlane(a):
 MAX_ROUND_THREADS = 256
 MAX_SMEM_BYTES = 232448     # 227 KB, the most one block can have on the H100
 MAX_CLUSTER = 8             # CTAs of one cluster that every Hopper part runs
+CHUNK_KNOTS = 16            # knots' blocks a cluster CTA's ring loads at once
+RING_CHUNKS = 2             # ... and the chunks its ring holds
 
 
-def round_smem_bytes(kernel: str, n: int, nb: int = 6, r: int = 3) -> int:
+def block_stride(nb: int) -> int:
+    """Floats from one knot's G (or H) to the next in a cluster's scratch
+    buffer and ring: nb^2 rounded up to whole 16-byte units."""
+    return -(-nb * nb // 4) * 4
+
+
+def round_smem_bytes(kernel: str, n: int, nb: int = 6, r: int = 3,
+                     streamed: bool = False) -> int:
     """Bytes of shared memory one block of K2 (``"fused_admm_round"``, nb 6)
     or K3 (``"fused_structured_round"``) takes at ``n`` knots: per knot
-    G_i and H_i (nb x nb each), two vectors of nb and Cinv's lower triangle,
-    then K2's transition blocks (3 x 6) and a 6-float-per-warp reduction
-    tail, or K3's a_cur and a_prev (r x nb each). ``round_smem_bytes`` in
-    ``csrc/btri_sweep.cuh`` computes the same, and the launchers refuse any
-    other size."""
-    per_knot = 2 * nb * nb + 2 * nb + nb * (nb + 1) // 2
+    G_i and H_i (nb x nb each; not with ``streamed``), two vectors of nb
+    and Cinv's lower triangle, then K2's transition blocks (3 x 6) and a
+    6-float-per-warp reduction tail, or K3's a_cur and a_prev (r x nb
+    each); with ``streamed`` (a CTA of a cluster, whose G and H stay in
+    device memory) also a ring of RING_CHUNKS chunks of CHUNK_KNOTS blocks
+    (:func:`block_stride` floats each) and a barrier (2 floats) a chunk.
+    ``round_smem_bytes`` in ``csrc/btri_sweep.cuh`` computes the same, and
+    the launchers refuse any other size."""
+    per_knot = (0 if streamed else 2 * nb * nb) + 2 * nb + nb * (nb + 1) // 2
+    ring = RING_CHUNKS * (CHUNK_KNOTS * block_stride(nb) + 2) if streamed \
+        else 0
     if kernel == "fused_admm_round":
-        return 4 * ((per_knot + 3 * nb) * n + 6 * (MAX_ROUND_THREADS // 32))
+        return 4 * ((per_knot + 3 * nb) * n + 6 * (MAX_ROUND_THREADS // 32)
+                    + ring)
     if kernel == "fused_structured_round":
-        return 4 * (per_knot + 2 * r * nb) * n
+        return 4 * ((per_knot + 2 * r * nb) * n + ring)
     raise KeyError(kernel)
 
 
@@ -88,10 +105,10 @@ class RoundPlan(NamedTuple):
 
 def round_limit(kernel: str, nb: int = 6, r: int = 3) -> int:
     """The most knots a K2/K3 launch takes at this block shape: a full
-    cluster of CTAs, each with as many knots as its threads and shared
-    memory hold."""
+    cluster of CTAs, each with as many knots as its threads and streamed
+    shared memory hold."""
     k = MAX_ROUND_THREADS
-    while round_smem_bytes(kernel, k, nb, r) > MAX_SMEM_BYTES:
+    while round_smem_bytes(kernel, k, nb, r, streamed=True) > MAX_SMEM_BYTES:
         k -= 1
     return MAX_CLUSTER * k
 
@@ -101,15 +118,17 @@ def round_plan(kernel: str, n: int, nb: int = 6, r: int = 3,
     """The launch plan of K2/K3 at ``n`` knots: the smallest cluster size c
     (1 is one plain thread block) whose CTAs hold k = ceil(n / c) knots
     each in at most MAX_ROUND_THREADS threads and MAX_SMEM_BYTES of shared
-    memory, none of them empty; or exactly c = ``cluster`` (a test of the
-    cluster path at a shape one block holds). ``round_plan`` in
-    ``csrc/btri_sweep.cuh`` computes the same and the launchers refuse any
-    other plan. ValueError where no plan exists: past
-    :func:`round_limit` knots."""
+    memory (the streamed layout when c > 1), none of them empty; or
+    exactly c = ``cluster`` (a test of the cluster path at a shape one
+    block holds). Past one block the smallest c is also the one that keeps
+    the most scenarios resident: the registers bind, and the fewest threads
+    idle in a ragged last warp. ``round_plan`` in ``csrc/btri_sweep.cuh``
+    computes the same and the launchers refuse any other plan. ValueError
+    where no plan exists: past :func:`round_limit` knots."""
     sizes = [cluster] if cluster else range(1, MAX_CLUSTER + 1)
     for c in sizes:
         k = -(-n // c)
-        smem = round_smem_bytes(kernel, k, nb, r)
+        smem = round_smem_bytes(kernel, k, nb, r, streamed=c > 1)
         if (n >= 1 and 1 <= c <= MAX_CLUSTER and k <= MAX_ROUND_THREADS
                 and smem <= MAX_SMEM_BYTES and (c - 1) * k < n):
             return RoundPlan(c, k, smem)
@@ -120,6 +139,16 @@ def round_plan(kernel: str, n: int, nb: int = 6, r: int = 3,
         f"{round_limit(kernel, nb, r)} knots at this block shape (at most "
         f"{MAX_CLUSTER} CTAs of {MAX_ROUND_THREADS} knots and "
         f"{MAX_SMEM_BYTES} bytes of shared memory each)")
+
+
+def round_scratch(plan: RoundPlan, n: int, nb: int, batch: int, device):
+    """The device memory a K2/K3 launch on ``plan`` writes G and H to
+    (2, B, n, :func:`block_stride`), or None for one CTA, which keeps them
+    in shared memory."""
+    if plan.cluster == 1:
+        return None
+    return torch.empty(2 * batch * n * block_stride(nb), dtype=F32,
+                       device=device)
 
 
 # --------------------------------- K1 ---------------------------------------
@@ -393,12 +422,14 @@ def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
     # The kernel reads the iterate, then writes its outputs over it.
     v, zk, ze, yk, ye = (t.clone() for t in (v, zk, ze, yk, ye))
     res = torch.empty((4, B), dtype=F32, device=dev)
+    scratch = round_scratch(plan, N, 6, B, dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_admm_round(
         p(cc), p(Ci), p(Wp), p(tp), p(lbk), p(ubk), p(lbe), p(ube), p(rk),
         p(re), p(end_idx), p(pd), p(v), p(zk), p(ze), p(yk), p(ye), p(res),
-        N, B, int(iters), plan.cluster, plan.knots, _cluster or 0, plan.smem,
-        float(alpha), float(1 - alpha), float(sigma), kernels.stream_ptr(dev))
+        kernels.ptr_or_null(scratch), N, B, int(iters), plan.cluster,
+        plan.knots, _cluster or 0, plan.smem, float(alpha), float(1 - alpha),
+        float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
     kernels.count_launch("fused_admm_round",
                          f"{key},N={N},c={plan.cluster}")
@@ -449,7 +480,7 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
     """``iters`` ADMM iterations of block-banded QPs in one launch (K3).
     Lane-major float32: Ci/Wp (N, nb, nb, B), ac/ap (N, r, nb, B),
     q/v (N, nb, B), lb/ub/rho/z/y (N, r, B). Returns (v, z, y). On CUDA
-    tensors (nb, r) is one of ``ROUND_SHAPES`` and N is at most 2048 (1200
+    tensors (nb, r) is one of ``ROUND_SHAPES`` and N is at most 2048 (1968
     at (9, 9); :func:`round_plan`); ``_cluster`` forces the cluster size,
     for tests of the cluster path."""
     dev = kernels.kernel_device(Ci)
@@ -470,12 +501,13 @@ def fused_structured_round(Ci, Wp, ac, ap, q, lb, ub, rho, v, z, y,
         kernels.expect(name, t, shapes[name], F32, dev)
     plan = round_plan("fused_structured_round", N, nb, r, cluster=_cluster)
     v, z, y = v.clone(), z.clone(), y.clone()
+    scratch = round_scratch(plan, N, nb, B, dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_fused_structured_round(
         p(Ci), p(Wp), p(ac), p(ap), p(q), p(lb), p(ub), p(rho), p(v), p(z),
-        p(y), N, nb, r, B, int(iters), plan.cluster, plan.knots,
-        _cluster or 0, plan.smem, float(alpha), float(1 - alpha),
-        float(sigma), kernels.stream_ptr(dev))
+        p(y), kernels.ptr_or_null(scratch), N, nb, r, B, int(iters),
+        plan.cluster, plan.knots, _cluster or 0, plan.smem, float(alpha),
+        float(1 - alpha), float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_structured_round")
     kernels.count_launch("fused_structured_round",
                          f"nb={nb},r={r},N={N},c={plan.cluster}")
