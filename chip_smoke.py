@@ -42,8 +42,12 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    (``wide_inputs``); K2 and K3 with a NaN bound; the cluster path forced
    at 128 and 256 knots in clusters of 2, 3, 4 and 8 bit for bit equal to
    one CTA (``check_cluster_path``); each cluster launch's time beside its
-   chain floor (``chain_floors``); and K2 and K3 one knot past their
-   limits and K4 at 1025 laterals refused;
+   chain floor (``chain_floors``); K4's streamed plan (``corridor.dp_plan``)
+   with clusters of 1, 2, 4 and 8 forced at 135 laterals (B 256, and the
+   tie-heavy lattice at B 64), at 300 (B 32) and at 137 (B 33), bit for
+   bit the plain version (``check_k4_clusters``); and K2 and K3 one knot
+   past their limits, K4 at 1025 laterals and in clusters of 9 refused,
+   and a K4 plan the C launcher does not take raising;
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
@@ -99,7 +103,8 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    lanes repeated to the same size, the batch again), 3 replanning
    cycles, a compiled ``replan_stream`` of 6 cycles (no host read while
    its cycles are issued; timed against 6 single steps), and every
-   ``LONG_RUNS`` run but the plain rounds: the first call (capture
+   ``LONG_RUNS`` run but the plain rounds and the fine lattice
+   (``FINE_LATTICE``, K4 at 135 laterals): the first call (capture
    included) and ``REPEATS`` replays, the first of them counted; every
    field of every result equal bit for bit to the eager result of the
    same call from the phases above (``bit_unequal``), ok_fraction 1.0,
@@ -614,6 +619,9 @@ def check_kernels(captured: dict) -> tuple[dict, dict, dict]:
             chain.update(ms_no_iters=ms0,
                          ns_per_chain_step=(ms - ms0) * 1e6 / steps)
         shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
+        if name == "dp_forward":
+            chain.update(plan=list(corridor.dp_card_plan(
+                args[0].shape[0], args[0].shape[-1])))
         line = dict(phase="kernel", name=name, shape=shape, held=held, **cmp,
                     ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                     plain_reps=plain_reps, bound_ms=b_ms, bound_by=b_by,
@@ -966,6 +974,58 @@ def check_cluster_path(captured: dict):
     emit(dict(phase="kernel", name="cluster_path", checks=out))
 
 
+# K4 with the streamed plan's cluster size forced (the wrapper's private
+# ``_cluster``): (label, inputs, sizes). "captured": the inputs
+# capture_long and wide_inputs record under the label; a tuple: (maker,
+# B, layers - 1, laterals) of a lattice made here, at a ragged B. Each
+# launch must equal the plain version bit for bit, and so each other.
+K4_CLUSTER_SIZES = (1, 2, 4, 8)
+K4_CLUSTER_CHECKS = (
+    ("K=135", "captured", K4_CLUSTER_SIZES),
+    (f"K={WIDE_LATTICE[2]}", "captured", K4_CLUSTER_SIZES),
+    ("K=137,B=33", ("random", 33, 31, 137), K4_CLUSTER_SIZES),
+    ("K=135,ties", ("ties", 64, 31, 135), K4_CLUSTER_SIZES),
+)
+
+
+def k4_equal(got, want) -> bool:
+    """K4's outputs equal bit for bit: costs as int32 bits, parents and
+    alive flags exactly."""
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+
+
+def check_k4_clusters(captured: dict):
+    """K4 at each of K4_CLUSTER_CHECKS with its own plan and with each
+    forced cluster size: every result equal bit for bit to the plain
+    version, each launch counted under its plan's key."""
+    w1 = captured[("dp_forward", "main")][5]
+    out = []
+    for label, source, sizes in K4_CLUSTER_CHECKS:
+        if source == "captured":
+            args = captured[("dp_forward", label)]
+        else:
+            make = random_lattice if source[0] == "random" else tie_lattice
+            args = tuple(torch.as_tensor(a, device="cuda")
+                         for a in make(*source[1:])) + (w1,)
+        B, _, _, K = args[0].shape
+        want = corridor.dp_forward_plain(*args)
+        for c in (None,) + tuple(sizes):
+            kernels.reset_launches()
+            got = corridor.dp_forward(*args, _cluster=c)
+            torch.cuda.synchronize()
+            plan = corridor.dp_card_plan(B, K, cluster=c)
+            key = f"dp_forward[K={K},c={plan.cluster}]"
+            row = dict(inputs=label, batch=B, laterals=K, forced=c,
+                       plan=list(plan), launch_keys=dict(
+                           kernels.shape_launches),
+                       bit_equal=k4_equal(got, want))
+            out.append(row)
+            if not row["bit_equal"] or kernels.shape_launches != {key: 1}:
+                raise AssertionError(f"K4 cluster path: {row}")
+    emit(dict(phase="kernel", name="dp_forward_clusters", checks=out))
+
+
 def _round_shape(name: str, args) -> tuple:
     """(nb, r) of K2/K3 arguments."""
     if name == "fused_admm_round":
@@ -1031,6 +1091,9 @@ def check_no_fallback(captured: dict):
         **{k: (lambda fn=fn, args=args: fn(*args))
            for k, (fn, args) in past.items()},
     }
+    fine = captured[("dp_forward", "K=135")]
+    calls["dp_forward[K=135,c=9]"] = lambda: corridor.dp_forward(
+        *fine, _cluster=9)
     raised = {}
     for key, call in calls.items():
         before = dict(kernels.launches)
@@ -1041,6 +1104,22 @@ def check_no_fallback(captured: dict):
         if key not in raised or kernels.launches != before:
             raise AssertionError(f"{key}: launched or ran without raising "
                                  "ValueError")
+    # The C launcher refuses a plan that is not dp_plan's (here a ring one
+    # chunk deeper than its bytes), and the wrapper raises: no launch, no
+    # count.
+    plan = corridor.dp_card_plan
+    before = dict(kernels.launches)
+    try:
+        corridor.dp_card_plan = lambda *a, **kw: plan(*a, **kw)._replace(
+            depth=plan(*a, **kw).depth + 1)
+        corridor.dp_forward(*fine)
+    except RuntimeError as err:
+        raised["dp_forward[plan refused by the launcher]"] = str(err)
+    finally:
+        corridor.dp_card_plan = plan
+    if "dp_forward[plan refused by the launcher]" not in raised or \
+            kernels.launches != before:
+        raise AssertionError("dp_forward: a plan the launcher refuses ran")
     torch.cuda.synchronize()
     emit(dict(phase="kernel", name="no_fallback", raised=raised))
 
@@ -1409,7 +1488,7 @@ def drive_long_route(gm, scs, gm_adv, scs_adv, device="cuda",
             for name, kw, plain, reps, need, horizon in LONG_RUNS]
     runs.append(("fine_lattice", gm_adv, scs_adv, FINE_LATTICE,
                  PlannerConfig(**FINE_LATTICE), False, REPEATS,
-                 [f"dp_forward[K={FINE_LATTICE['dp_laterals']}]"], None))
+                 [f"dp_forward[K={FINE_LATTICE['dp_laterals']},"], None))
     out = {"card_geometry": check_card_geometry(device)}
     for name, g, sc, kw, c, plain, reps, need, horizon in runs:
         settings = c.qp_settings(fused_rounds=False) if plain else None
@@ -1817,8 +1896,9 @@ def drive_compiled(gm, scs, cfg, gm_long, scs_long, eager: dict,
     """The compiled entry points on the card (``pipeline.solve_batch_jit``,
     the compiled ``replan.replan_step``): the adversarial batch at the
     default config and under every variant, two input sets of one key, the
-    replanning cycles and stream, and every long-route run of LONG_RUNS but
-    the plain rounds, each held bit for bit to the eager result of the same
+    replanning cycles and stream, every long-route run of LONG_RUNS but
+    the plain rounds and the fine lattice (FINE_LATTICE, K4 at 135
+    laterals), each held bit for bit to the eager result of the same
     call (``eager``, from the earlier phases: result, rounds and launches
     by key). The sharded path is held in ``drive_dist``. Raises first
     unless the CUDA runtime and driver have conditional graph nodes."""
@@ -1837,6 +1917,10 @@ def drive_compiled(gm, scs, cfg, gm_long, scs_long, eager: dict,
                                  eager[name], device)
         # The long route's pools are the largest: free each before the next.
         pipeline.COMPILED.clear()
+    out["fine_lattice"] = compiled_run(
+        "fine_lattice", gm, scs, PlannerConfig(**FINE_LATTICE),
+        eager["fine_lattice"], device)
+    pipeline.COMPILED.clear()
     return out
 
 
@@ -2836,6 +2920,7 @@ def main() -> int:
     captured.update(wide_inputs(captured))
     primary, worst, by_shape = check_kernels(captured)
     check_cluster_path(captured)
+    check_k4_clusters(captured)
     check_no_fallback(captured)
 
     eager = {}

@@ -669,10 +669,16 @@ def random_lattice(seed=7, B=5, lm1=9, K=11):
 def lattice(case):
     """random_lattice(seed) for an int case; "ties": chip_smoke's tie-heavy
     lattice at the same small shape, where runs of kp tie exactly and the
-    first-index rule decides the parents."""
+    first-index rule decides the parents; "K135", "K137": the random
+    lattice at 2 scenarios of 5 layers and K laterals (the streamed plan's
+    widths), "ties135": the tie-heavy one at 3 x 4 x 135."""
+    from chip_smoke import tie_lattice
     if case == "ties":
-        from chip_smoke import tie_lattice
         return tie_lattice(5, 9, 11, seed=3)
+    if case == "ties135":
+        return tie_lattice(3, 4, 135, seed=3)
+    if isinstance(case, str):
+        return random_lattice(7, B=2, lm1=5, K=int(case[1:]))
     return random_lattice(case)
 
 
@@ -724,28 +730,206 @@ def split_first_argmin(total, P):
     return best, best_prev
 
 
-@pytest.mark.parametrize("P", [11, 7, 1, 3, 4])
-@pytest.mark.parametrize("case", [7, "ties"])
+def stream_first_argmin(total, plan):
+    """K4's streamed scan (csrc/dp_forward.cu, dp_forward_streamed) on
+    total (B, Kp, K) under ``plan``: cluster rank j takes kp rows [j kr,
+    j kr + kr), kr = ceil(Kp / c), in chunks of plan.rows; lane p of a
+    lateral scans rows p, p + P, ... of each chunk in ascending kp with a
+    strict `<`; the P lanes combine by the shuffle tree (offsets P / 2 ..
+    1, lane p taking lane p + o's minimum where it is smaller, or equal at
+    a smaller kp); then the ranks in order with a strict `<`."""
+    B, Kp, K = total.shape
+    c, P, R = plan.cluster, plan.slices, plan.rows
+    kr = -(-Kp // c)
+    inf = torch.full((B, K), float("inf"))
+    none = torch.full((B, K), 2 ** 31 - 1, dtype=torch.int32)
+    best, best_prev = inf, none
+    for j in range(c):
+        lo, nr = j * kr, min(kr, Kp - j * kr)
+        lanes = []
+        for p in range(P):
+            lb, lk = inf, none
+            for row in range(0, nr, R):
+                for i in range(p, min(R, nr - row), P):
+                    kp = lo + row + i
+                    take = total[:, kp] < lb
+                    lb = torch.where(take, total[:, kp], lb)
+                    lk = torch.where(take, kp, lk)
+            lanes.append((lb, lk))
+        o = P // 2
+        while o:
+            new = list(lanes)
+            for p in range(P - o):
+                (b0, k0), (b1, k1) = lanes[p], lanes[p + o]
+                take = (b1 < b0) | ((b1 == b0) & (k1 < k0))
+                new[p] = (torch.where(take, b1, b0), torch.where(take, k1, k0))
+            lanes = new
+            o //= 2
+        take = lanes[0][0] < best
+        best = torch.where(take, lanes[0][0], best)
+        best_prev = torch.where(take, lanes[0][1], best_prev)
+    return best, best_prev
+
+
+K4_SPLITS = [(case, P) for P in (11, 7, 1, 3, 4) for case in (7, "ties")] + [
+    (case, f"c{c}") for case in ("K135", "K137", "ties135")
+    for c in range(1, corridor.DP_MAX_CLUSTER + 1)]
+
+
+@pytest.mark.parametrize("case, P", K4_SPLITS)
 def test_k4_split_scan_matches_plain_and_scan(case, P, monkeypatch):
-    """The kernel's P-way split of the kp scan gives the plain version's
-    first argmin bit for bit (costs, parents, alive flags), and the JAX
-    scan's parents and alive flags, on the random lattice and on the
-    tie-heavy one. At K = 11 the launcher takes P = 11 (one kp per slice;
-    7 at the main path's K = 35); the others split the 11 unevenly."""
+    """The kernel's split of the kp scan gives the plain version's first
+    argmin bit for bit (costs, parents, alive flags), and the JAX scan's
+    parents and alive flags, on the random lattice and on the tie-heavy
+    one. The staged plan's P-way split (an int P): at K = 11 the launcher
+    takes P = 11 (one kp per slice; 7 at the main path's K = 35); the
+    others split the 11 unevenly. The streamed plan ("c<n>": dp_plan in
+    clusters of n, every size the plan takes) at 135 and 137 laterals:
+    ranks, chunks and slices (stream_first_argmin)."""
     w1 = JaxConfig().dp_weight_angle_change
     arrs = tuple(t(a) for a in lattice(case))
     want = corridor.dp_forward_plain(*arrs, w1)
-    monkeypatch.setattr(corridor, "first_argmin",
-                        lambda total: split_first_argmin(total, P))
+    if isinstance(P, int):
+        split = lambda total: split_first_argmin(total, P)  # noqa: E731
+    else:
+        B, _, _, K = arrs[0].shape
+        plan = corridor.dp_plan(B, K, cluster=int(P[1:]))
+        assert not plan.staged and plan.cluster == int(P[1:])
+        split = lambda total: stream_first_argmin(total, plan)  # noqa: E731
+    monkeypatch.setattr(corridor, "first_argmin", split)
     got = corridor.dp_forward_plain(*arrs, w1)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     scan = jax_scan(lattice(case), w1)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(scan[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(scan[2]))
-    if case == "ties":   # each parent is the first kp of its run of ties
+    if str(case).startswith("ties"):   # each parent: the first of its run
         for b in range(got[1].shape[0]):
             assert bool((got[1][b] % (2 + b % 4) == 0).all())
+
+
+def test_dp_plan_keeps_every_cta_on_the_card_and_its_rows_whole():
+    """dp_plan at every K from 1 to 1024 and B in {1, 32, 132, 133, 256},
+    on its own choice and with every cluster size forced: each CTA's kp
+    range is non-empty and the ranges cover 0 .. K-1 in rank order; shared
+    memory is within 232,448 bytes and the plan's own formula; clusters of
+    at most 8, threads at most 1024, a chunk at most a CTA's rows, a ring
+    of 2 to 8 chunks. The staged plan holds up to 119 laterals and the
+    main path's (256, 35) is one CTA; K = 1025, and 9 CTAs, raise."""
+    for B in (1, 32, 132, 133, 256):
+        for K in range(1, corridor.DP_MAX_LATERALS + 1):
+            plans = [corridor.dp_plan(B, K)]
+            for c in range(1, corridor.DP_MAX_CLUSTER + 1):
+                try:
+                    plans.append(corridor.dp_plan(B, K, cluster=c))
+                except ValueError:
+                    assert (c - 1) * -(-K // c) >= K, (B, K, c)
+            assert plans[0].staged == (K <= 119), (B, K)
+            for plan in plans:
+                c, P, R, D, smem, staged = plan
+                assert 1 <= c <= 8 and smem <= 232448, (B, K, plan)
+                kr = -(-K // c)
+                ranges = [range(j * kr, min(K, j * kr + kr))
+                          for j in range(c)]
+                assert all(len(r) > 0 for r in ranges), (B, K, plan)
+                assert [kp for r in ranges for kp in r] == list(range(K))
+                if staged:
+                    assert (c, R, D) == (1, K, 2), (B, K, plan)
+                    assert plan == corridor.dp_staged_plan(K)
+                    continue
+                assert P & (P - 1) == 0 and P <= 32, (B, K, plan)
+                assert -(-K * P // 32) * 32 <= 1024, (B, K, plan)
+                assert 1 <= R <= kr and 2 <= D <= 8, (B, K, plan)
+                assert smem == corridor.dp_smem_bytes(K, c, R, D)
+    assert corridor.dp_plan(256, 35) == (1, 7, 35, 2, 21840, True)
+    assert corridor.dp_plan(256, 135).cluster == 1
+    assert corridor.dp_plan(32, 300).cluster > 1
+    with pytest.raises(ValueError, match="1 to 1024 laterals"):
+        corridor.dp_plan(1, 1025)
+    with pytest.raises(ValueError, match="clusters of 9"):
+        corridor.dp_plan(32, 300, cluster=9)
+    with pytest.raises(ValueError):       # 3 CTAs of 1 row and an empty
+        corridor.dp_plan(32, 3, cluster=4)
+
+
+def test_dp_plan_matches_the_launchers_checks():
+    """The C launcher (csrc/dp_forward.cu) checks each plan against the same
+    limits and shared-memory formula as corridor.dp_plan: the constants
+    and the arithmetic are read from the source."""
+    src = (kernels.CSRC / "dp_forward.cu").read_text()
+    common = (kernels.CSRC / "common.cuh").read_text()
+    assert (cpp_constant(src, "kDpMaxCluster"), cpp_constant(
+        src, "kDpMaxDepth"), cpp_constant(common, "kMaxSmemBytes")) == (
+        corridor.DP_MAX_CLUSTER, corridor.DP_MAX_DEPTH,
+        corridor.DP_MAX_SMEM_BYTES)
+    for expr in ("return (rows * K + 3) / 4 * 4 + 4;",
+                 "const size_t slot = 2 * static_cast<size_t>(region_floats("
+                 "rows, K)) + 4;",
+                 "return (depth * slot + 4 * static_cast<size_t>(K) +",
+                 "(cluster > 1 ? 6 * static_cast<size_t>(K) : 0)) *",
+                 "(cluster - 1) * kr >= K",
+                 "(P & (P - 1)) != 0", "rows > kr",
+                 "depth < 2 ||\n      depth > kDpMaxDepth",
+                 "const size_t smem = (4 * static_cast<size_t>(K) * K + 2 * K"
+                 " +"):
+        assert expr in src, expr
+
+
+def split_chunk(m, n):
+    """csrc/dp_forward.cu's split_chunk: a chunk of n floats starting m
+    floats past a 16-byte boundary, as (head, body, tail) floats."""
+    head = min(n, (4 - m) & 3)
+    body = (n - head) & ~3
+    return head, body, n - head - body
+
+
+def stream_copies(start, K, lm1, plan, rank):
+    """The copies one streamed CTA issues for a scenario whose table starts
+    ``start`` floats past a 16-byte boundary (chunk_offset and issue in
+    csrc/dp_forward.cu): for each chunk, layer by layer, (first float's
+    index in the scenario's stream, m, head, body, tail)."""
+    kr = -(-K // plan.cluster)
+    lo, nr = rank * kr, min(kr, K - rank * kr)
+    nch = -(-nr // plan.rows)
+    for q in range(lm1 * nch):
+        layer, j = divmod(q, nch)
+        row = j * plan.rows
+        n = min(plan.rows, nr - row) * K
+        off = (layer * K + lo + row) * K
+        m = (start + off) % 4
+        yield (off, m) + split_chunk(m, n)
+
+
+@pytest.mark.parametrize("K", [135, 137, 300])
+def test_k4_chunks_cover_each_float_once_with_aligned_bulk_parts(K):
+    """At every start of a scenario's stream within 16 bytes, for every
+    cluster size, the streamed CTAs' chunks cover each float of the (L-1)
+    K^2 stream exactly once; each bulk part starts on a 16-byte boundary
+    in device memory and in its shared-memory region (where the chunk
+    starts m floats in) and is a whole number of 16-byte units; head and
+    tail (cp.async) are at most 3 floats; the chunk fits its region."""
+    src = (kernels.CSRC / "dp_forward.cu").read_text()
+    for expr in ("s.head = min(n, (4 - s.m) & 3);",
+                 "s.body = (n - s.head) & ~3;",
+                 "len = min(R, nr - row);",
+                 "return ((scen + l) * K + row_lo + row) * K;",
+                 "bulk_copy(reg_d + sd.m + sd.head, src_d + sd.head,"):
+        assert expr in src, expr
+    lm1 = 3
+    for start in range(4):
+        for c in range(1, corridor.DP_MAX_CLUSTER + 1):
+            plan = corridor.dp_plan(32, K, cluster=c)
+            region = -(-plan.rows * K // 4) * 4 + 4
+            seen = np.zeros(lm1 * K * K, np.int32)
+            for rank in range(c):
+                for off, m, head, body, tail in stream_copies(
+                        start, K, lm1, plan, rank):
+                    assert head <= 3 and tail <= 3 and body % 4 == 0
+                    assert (start + off + head) % 4 == 0
+                    assert (m + head) % 4 == 0
+                    assert m + head + body + tail <= region
+                    seen[off:off + head + body + tail] += 1
+            assert (seen == 1).all(), (start, c)
 
 
 def test_k4_wrap_matches_jnp_mod_bit_for_bit():
@@ -760,6 +944,32 @@ def test_k4_wrap_matches_jnp_mod_bit_for_bit():
                        ).astype(np.float32)
     want = np.asarray(jgeometry.constrain_angle(jnp.asarray(x)))
     got = geometry.constrain_angle(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_k4_wrap_shortcut_matches_fmod_bit_for_bit():
+    """The kernel's wrap (csrc/dp_forward.cu) takes y = x + pi itself where
+    |y| < 2 pi and y -+ 2 pi where |y| < 4 pi, fmod only beyond: modelled
+    here in float32 numpy, one rounding an operation, it equals jnp.mod's
+    wrap bit for bit, at and around the boundaries 2 pi and 4 pi too."""
+    from tpu_pathopt import geometry as jgeometry
+    f = np.float32
+    pi, two_pi = f(np.pi), f(2 * np.pi)
+    rng = np.random.default_rng(6)
+    edges = np.concatenate([k * two_pi - pi + np.array([-1, 0, 1]) * f(1e-6)
+                            for k in (-2, -1, 1, 2)])
+    x = np.concatenate([rng.uniform(-7, 7, 100_000),
+                        rng.uniform(-1e3, 1e3, 1000), edges,
+                        np.pi * np.arange(-8, 9), [0.0, -0.0]]).astype(f)
+    x = np.concatenate([x, np.nextafter(x, f(np.inf)),
+                        np.nextafter(x, f(-np.inf))])
+    y = x + pi
+    ay = np.abs(y)
+    r = np.where(ay < two_pi, y, np.where(
+        ay < f(2) * two_pi, y - np.copysign(two_pi, y), np.fmod(y, two_pi)))
+    r = np.where((r != 0) & (r < 0), r + two_pi, r)
+    got = (r - pi).astype(f)
+    want = np.asarray(jgeometry.constrain_angle(jnp.asarray(x)))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 

@@ -14,8 +14,10 @@ tensor code. Every array is batch-leading.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -231,6 +233,160 @@ def first_argmin(total):
 # The most laterals K4 takes: one thread of its block for each.
 DP_MAX_LATERALS = 1024
 
+# K4's launch plans (csrc/dp_forward.cu checks every plan it is given). Up
+# to 119 laterals one CTA a scenario stages each layer's two tables in
+# shared memory; past that (or with a cluster size forced) the tables
+# stream through a ring of chunks of kp rows, and a scenario may take a
+# thread block cluster of CTAs, each streaming a contiguous range of kp.
+DP_MAX_SMEM_BYTES = 232448   # 227 KB, the most one block can have on the H100
+DP_SM_SMEM_BYTES = 233472    # an SM's shared memory; each CTA takes 1 KB more
+DP_SMS = 132                 # the H100 SXM's streaming multiprocessors
+DP_MAX_CLUSTER = 8           # CTAs of one cluster that every Hopper part runs
+DP_MAX_DEPTH = 8             # ring chunks a streamed CTA holds
+DP_THREADS = 640             # K x P threads a streamed CTA's slices aim at
+DP_CHUNK_BYTES = 16384       # both tables' rows of one chunk, aimed at
+DP_LAYER_ROWS = 16           # a layer's fixed cost (barriers, combine) in rows
+# What each CTA an SM runs beyond the first adds to a CTA's time: one CTA
+# alone does not fill an SM (on the H100, B 256 against B 132 at one CTA a
+# scenario took 1.32x at 135 laterals and 1.35x at 300).
+DP_SHARED_CTA = 0.33
+
+
+class DpPlan(NamedTuple):
+    """A K4 launch: ``cluster`` CTAs a scenario (CTA rank j scans kp rows
+    [j ceil(K / cluster), ...)), ``slices`` threads a lateral, ``rows`` kp
+    rows a ring chunk, ``depth`` chunks a ring, ``smem`` bytes of shared
+    memory a CTA; ``staged``: one CTA with two layers' tables in shared
+    memory (``rows`` K, ``depth`` 2)."""
+    cluster: int
+    slices: int
+    rows: int
+    depth: int
+    smem: int
+    staged: bool
+
+
+def dp_staged_plan(K: int) -> DpPlan | None:
+    """The staged plan at K laterals, or None where two layers' tables do
+    not fit in one CTA's shared memory (K > 119): P slices of the kp scan
+    with K x P about 256 and no slice empty, and shared memory for 4 K^2
+    floats of tables, the frontier and the P partial minima."""
+    slices = min(K, 256 // K if K < 256 else 1)
+    size = -(-K // slices)
+    slices = -(-K // size)
+    smem = 4 * (4 * K * K + 2 * K + 2 * slices * K)
+    return DpPlan(1, slices, K, 2, smem, True) \
+        if smem <= DP_MAX_SMEM_BYTES else None
+
+
+def dp_smem_bytes(K: int, cluster: int, rows: int, depth: int) -> int:
+    """Shared memory of a streamed CTA: ``depth`` ring slots, each two table
+    regions of rows x K floats rounded up to 16 bytes and 16 more (a
+    chunk keeps its source's offset within 16 bytes) and two mbarriers;
+    the frontier (cost and direction) twice over; in a cluster the CTA's
+    partial minima (cost, kp, direction) twice over."""
+    region = -(-rows * K // 4) * 4 + 4
+    return 4 * (depth * (2 * region + 4) + 4 * K
+                + (6 * K if cluster > 1 else 0))
+
+
+def dp_held(K: int, plan: DpPlan) -> int:
+    """How many clusters (CTAs where ``plan.cluster`` is 1) of a streamed
+    plan the card holds at once, as a model: DP_SMS SMs, each holding as
+    many CTAs as its threads (2048) and shared memory allow. The card's
+    own count (``dp_card_plan``) also knows how its SMs group into GPCs,
+    which a cluster may not span."""
+    threads = -(-K * plan.slices // 32) * 32
+    per_sm = min(2048 // threads, DP_SM_SMEM_BYTES // (plan.smem + 1024))
+    return DP_SMS * per_sm // plan.cluster
+
+
+def _streamed_plan(B: int, K: int, c: int, slices: int) -> DpPlan:
+    """The streamed plan in clusters of c: chunks of DP_CHUNK_BYTES of rows
+    (a multiple of P, at most a CTA's rows); as many chunks a ring, up to
+    DP_MAX_DEPTH and at least 2, as keep the CTAs an SM is given (ceil(B c
+    / DP_SMS), as far as its threads allow) within its shared memory."""
+    kr = -(-K // c)
+    threads = -(-K * slices // 32) * 32
+    rows = min(kr, max(slices, DP_CHUNK_BYTES // (8 * K) // slices * slices))
+    resident = max(1, min(-(-B * c // DP_SMS), 2048 // threads))
+    budget = min(DP_MAX_SMEM_BYTES, DP_SM_SMEM_BYTES // resident - 1024)
+    depth = DP_MAX_DEPTH
+    while depth > 2 and dp_smem_bytes(K, c, rows, depth) > budget:
+        depth -= 1
+    return DpPlan(c, slices, rows, depth, dp_smem_bytes(K, c, rows, depth),
+                  False)
+
+
+def dp_plan(B: int, K: int, cluster: int | None = None,
+            held=dp_held) -> DpPlan:
+    """K4's launch plan for B scenarios of K laterals.
+
+    The staged plan where it fits and no cluster size is forced; else the
+    streamed one: P, the largest power of two (at most 32) with K x P at
+    most DP_THREADS (1 past that), threads a lateral; c CTAs a scenario,
+    exactly ``cluster``, or the c in 1..DP_MAX_CLUSTER with no CTA empty
+    that takes the least time on the busiest SM: ceil(B / h) waves, h =
+    ``held(K, plan)`` (the clusters the card holds at once), each with s =
+    ceil(min(B, h) c / DP_SMS) CTAs on an SM, which take 1 +
+    DP_SHARED_CTA (s - 1) times one CTA's ceil(K / c) rows plus
+    DP_LAYER_ROWS for a layer's barriers; the smallest c among equals.
+    ValueError for K outside 1 .. DP_MAX_LATERALS or a cluster size with
+    no plan."""
+    if B < 1 or not 1 <= K <= DP_MAX_LATERALS:
+        raise ValueError(f"dp_plan: B={B}, K={K}; K4 takes 1 to "
+                         f"{DP_MAX_LATERALS} laterals")
+    if cluster is None:
+        staged = dp_staged_plan(K)
+        if staged is not None:
+            return staged
+    slices = 1
+    while slices < 32 and 2 * slices * K <= DP_THREADS:
+        slices *= 2
+    best = None
+    for c in [cluster] if cluster is not None else range(
+            1, DP_MAX_CLUSTER + 1):
+        if not 1 <= c <= DP_MAX_CLUSTER or (c - 1) * -(-K // c) >= K:
+            continue
+        plan = _streamed_plan(B, K, c, slices)
+        if cluster is not None:
+            return plan
+        h = held(K, plan)
+        if h < 1:
+            continue
+        shared = -(-min(B, h) * c // DP_SMS) - 1
+        cost = -(-B // h) * (1 + DP_SHARED_CTA * shared) * (
+            -(-K // c) + DP_LAYER_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    if best is None:
+        raise ValueError(f"dp_plan: K={K} has no plan in clusters of "
+                         f"{cluster} (1 to {DP_MAX_CLUSTER} CTAs, none "
+                         "without rows)")
+    return best[1]
+
+
+# (device, K, plan) -> clusters of the plan the card holds at once.
+_HELD: dict = {}
+
+
+def _card_held(K: int, plan: DpPlan) -> int:
+    key = (torch.cuda.current_device(), K) + tuple(plan)
+    if key not in _HELD:
+        held = ctypes.c_int()
+        kernels.check(kernels.lib().pathopt_dp_resident(
+            K, plan.cluster, plan.slices, plan.rows, plan.depth, plan.smem,
+            ctypes.byref(held)), "dp_forward (occupancy)")
+        _HELD[key] = held.value
+    return _HELD[key]
+
+
+def dp_card_plan(B: int, K: int, cluster: int | None = None) -> DpPlan:
+    """:func:`dp_plan` weighing the cluster sizes by what the current CUDA
+    card holds at once (the CUDA runtime's occupancy count, once a plan): the
+    plan :func:`dp_forward` launches."""
+    return dp_plan(B, K, cluster, held=_card_held)
+
 
 def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
     """K4's plain version: the DP forward pass as a loop over layers.
@@ -266,15 +422,16 @@ def dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1: float):
             torch.stack(alives, 1))
 
 
-def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
+def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float,
+               _cluster=None):
     """The DP forward pass (K4, ``csrc/dp_forward.cu``), same arguments and
     results as :func:`dp_forward_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream. The
-    launcher splits each lateral's parent scan over the block's threads and
-    stages each layer's tables in shared memory up to 119 laterals, reading
-    them from device memory above; a lattice of more than
-    ``DP_MAX_LATERALS`` (1024) laterals, one thread each, raises
-    ValueError."""
+    version; CUDA tensors launch the kernel on the current stream, on
+    :func:`dp_card_plan`'s plan (``_cluster`` forces the streamed plan in
+    clusters of that size, for tests of the cluster path). A lattice of
+    more than ``DP_MAX_LATERALS`` (1024) laterals, or a cluster size with
+    no plan, raises ValueError before any launch; a plan or cluster the
+    card refuses raises RuntimeError."""
     dev = kernels.kernel_device(dir_all)
     if dev is None:
         return dp_forward_plain(dir_all, base_all, h_in, cost0, dir0, w1)
@@ -291,15 +448,18 @@ def dp_forward(dir_all, base_all, h_in, cost0, dir0, w1: float):
                            ("h_in", h_in, (B, lm1)), ("cost0", cost0, (B, K)),
                            ("dir0", dir0, (B, K))):
         kernels.expect(name, t, shape, f32, dev)
+    plan = dp_card_plan(B, K, cluster=_cluster)
     costs = torch.empty((B, lm1, K), dtype=f32, device=dev)
     parents = torch.empty((B, lm1, K), dtype=torch.int32, device=dev)
     alives = torch.empty((B, lm1), dtype=torch.uint8, device=dev)
     p = kernels.ptr
     err = kernels.lib().pathopt_dp_forward(
         p(dir_all), p(base_all), p(h_in), p(cost0), p(dir0), p(costs),
-        p(parents), p(alives), B, lm1, K, float(w1), kernels.stream_ptr(dev))
+        p(parents), p(alives), B, lm1, K, int(plan.staged), plan.cluster,
+        plan.slices, plan.rows, plan.depth, plan.smem, float(w1),
+        kernels.stream_ptr(dev))
     kernels.check(err, "dp_forward")
-    kernels.count_launch("dp_forward", f"K={K}")
+    kernels.count_launch("dp_forward", f"K={K},c={plan.cluster}")
     return costs, parents, alives.bool()
 
 

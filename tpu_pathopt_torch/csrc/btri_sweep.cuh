@@ -159,31 +159,8 @@ int launch_round(void (*one)(Args), void (*clustered)(Args),
     kernel<<<batch, threads, smem, stream>>>(a);
     return launch_status();
   }
-  // The most shared memory an SM gives its CTAs, so that the occupancy the
-  // registers allow is not cut by an L1-sized carveout.
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * plan.cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_status();
+  return launch_clustered(kernel, batch * plan.cluster, threads, smem,
+                          plan.cluster, a, stream);
 }
 
 // The knots of one scenario that this CTA holds. Without a cluster the

@@ -48,11 +48,39 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// A shared-memory barrier (mbarrier) that one arrival and the bytes of the
-// copies expected on it complete. Make it visible before use
+// A shared-memory barrier (mbarrier) that `count` arrivals and the bytes
+// of the copies expected on it complete. Make it visible before use
 // (fence_barrier_init, then a barrier of the threads).
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+__device__ __forceinline__ void barrier_init(uint64_t* bar,
+                                             unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival on `bar` (release: this thread's earlier shared-memory reads
+// and writes are ordered before the phase completes).
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` of bulk copies on it.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread has issued is
+// complete (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 
@@ -68,19 +96,23 @@ __device__ __forceinline__ void fence_async() {
 
 // One bulk copy (the Tensor Memory Accelerator) of `bytes` (a multiple of
 // 16, both addresses 16-byte aligned) from device memory into this CTA's
-// shared memory, completing the current phase of `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+// shared memory, its bytes counted on `bar` (expected there by
+// expect_bytes).
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
                                           unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// bulk_copy with its own arrival: completes the current phase of a
+// barrier of one arrival.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  expect_bytes(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // Wait until the phase of `bar` with this parity has completed.
@@ -121,5 +153,38 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 // Launch status for the host: the error of the launch itself (a refused
 // configuration never runs and is not reported by a later synchronize).
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// Launch `kernel` over `grid` CTAs in clusters of `cluster` (> 1), after
+// giving it the most shared memory an SM has (so that the occupancy the
+// registers allow is not cut by an L1-sized carveout) and checking that a
+// cluster of them fits on the card. The kernel's dynamic shared memory
+// size must be set already.
+template <class Args>
+int launch_clustered(void (*kernel)(Args), int grid, int threads, int smem,
+                     int cluster, const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_status();
+}
 
 }  // namespace pathopt

@@ -12,7 +12,8 @@ raises on anything but 0. Each wrapper calls :func:`count_launch` where it
 launches its kernel, and nowhere else, which adds one to ``launches[name]``
 and to ``shape_launches`` under the kernel and its block shape (for K2 and
 K3 also the knots and the launch plan's cluster size, e.g.
-``fused_admm_round[nb=6,N=512,c=2]``), so a run can show that the main path
+``fused_admm_round[nb=6,N=512,c=2]``; for K4 the laterals and the cluster
+size, ``dp_forward[K=135,c=1]``), so a run can show that the main path
 went through each kernel at each of its shapes and plans. A captured CUDA
 graph launches its kernels at every replay without the wrappers running,
 and how often its loop bodies run is known only on the device: a compiled
@@ -214,7 +215,8 @@ def lib():
             [p] * 19 + [i] * 7 + [f] * 3 + [p])
         L.pathopt_fused_structured_round.argtypes = (
             [p] * 12 + [i] * 9 + [f] * 3 + [p])
-        L.pathopt_dp_forward.argtypes = [p] * 8 + [i, i, i, f, p]
+        L.pathopt_dp_forward.argtypes = [p] * 8 + [i] * 9 + [f, p]
+        L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
         u64 = ctypes.c_ulonglong
         L.pathopt_graph_versions.argtypes = [p, p]
         L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
@@ -224,6 +226,7 @@ def lib():
         L.pathopt_set_condition.argtypes = [u64, p, p]
         for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                    L.pathopt_fused_structured_round, L.pathopt_dp_forward,
+                   L.pathopt_dp_resident,
                    L.pathopt_graph_versions, L.pathopt_cond_handle,
                    L.pathopt_cond_node, L.pathopt_capture_to,
                    L.pathopt_capture_end, L.pathopt_set_condition):
