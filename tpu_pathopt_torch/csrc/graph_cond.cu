@@ -16,15 +16,24 @@
 // pathopt_capture_end). Needs a CUDA 12.4 runtime and driver (WHILE
 // nodes); pathopt_graph_versions reports both.
 //
-// What bounds it on the H100: the one kernel here, set_condition, reads
-// one byte and sets one handle, so its cost is that of launching a graph
-// node, two a QP round beside the round's K2 or K3.
+// What bounds it on the H100: set_condition reads one byte and sets one
+// handle, so its cost is that of launching a graph node, two a QP round
+// beside the round's K2 or K3; a stamp (traced keys only) writes at most
+// three int64, one node each.
 //
 // What the design does about it: nothing goes to the host. The round
 // computes its loop test and refactor gate on the device, set_condition
 // turns each into the node's condition where the body ends (WHILE) or
 // right before the node (IF), and the graph runs every round without the
 // host in between.
+//
+// The traced key of a compiled call (tpu_pathopt_torch.profiling) adds
+// stamp nodes: one thread writes %globaltimer, and where asked a few values
+// of the device (a loop's round and refactor tallies), into the row of a
+// ring in device memory that a device call counter picks; the call's last
+// stamp advances the counter. The host reads the ring only when asked for
+// the spans. Node counts of the graph a stream is capturing into, and of a
+// conditional node's body, give each stage's and each body's nodes.
 //
 // Every function returns its cudaError_t (0 on success).
 
@@ -35,6 +44,26 @@ namespace {
 __global__ void set_condition(cudaGraphConditionalHandle handle,
                               const bool* flag) {
   cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+__global__ void stamp(long long* ring, long long* counter, int slot,
+                      int slots, int rows, const long long* values,
+                      int n_values, int advance) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  long long* row = ring + (*counter % rows) * slots + slot;
+  row[0] = static_cast<long long>(t);
+  for (int i = 0; i < n_values; ++i) row[1 + i] = values[i];
+  if (advance) *counter += 1;
+}
+
+// `n` readings of %globaltimer back to back: its resolution on this card.
+__global__ void timer_probe(long long* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    out[i] = static_cast<long long>(t);
+  }
 }
 
 // The graph `stream` is capturing into and the capture's current
@@ -137,6 +166,46 @@ int pathopt_set_condition(unsigned long long handle, const bool* flag,
                           void* stream) {
   set_condition<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(handle, flag);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch stamp: %globaltimer into ring[counter % rows][slot], then
+// `n_values` int64 values from `values` into the slots after it; with
+// `advance` the counter moves to the next row.
+int pathopt_stamp(long long* ring, long long* counter, int slot, int slots,
+                  int rows, const long long* values, int n_values,
+                  int advance, void* stream) {
+  stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      ring, counter, slot, slots, rows, values, n_values, advance);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pathopt_timer_probe(long long* out, int n, void* stream) {
+  timer_probe<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The nodes of the graph `stream` is capturing into, so far (top level: a
+// conditional node counts as one, its body apart).
+int pathopt_capture_nodes(void* stream, unsigned long long* count) {
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &graph,
+                                 &deps, &n_deps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  *count = n;
+  return static_cast<int>(err);
+}
+
+// The nodes of `graph` (a conditional node's body).
+int pathopt_graph_nodes(void* graph, unsigned long long* count) {
+  size_t n = 0;
+  cudaError_t err =
+      cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &n);
+  *count = n;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -22,7 +22,8 @@ call's counts are added when they are read (:func:`sync_counts`, which
 refactors times the launches each body's capture recorded.
 
 ``graph_cond.cu`` is no TPU kernel's port: it adds the conditional graph
-nodes of a compiled call's device-side loops (``torchutil.Segments``).
+nodes of a compiled call's device-side loops (``torchutil.Segments``), and
+the stamps and node counts of a traced compiled call (``profiling``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from tpu_pathopt_torch import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -167,6 +170,7 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         build_info.setdefault("path", str(so))
         return so
+    profiling.COUNTS["builds"] += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"tmp_{so.stem}_{os.getpid()}"
     tmp.mkdir(exist_ok=True)
@@ -208,33 +212,46 @@ def lib():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
-        L.pathopt_fused_admm_round.argtypes = (
-            [p] * 19 + [i] * 7 + [f] * 3 + [p])
-        L.pathopt_fused_structured_round.argtypes = (
-            [p] * 12 + [i] * 9 + [f] * 3 + [p])
-        L.pathopt_dp_forward.argtypes = [p] * 8 + [i] * 9 + [f, p]
-        L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
-        u64 = ctypes.c_ulonglong
-        L.pathopt_graph_versions.argtypes = [p, p]
-        L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
-        L.pathopt_cond_node.argtypes = [p, u64, i, p]
-        L.pathopt_capture_to.argtypes = [p, p]
-        L.pathopt_capture_end.argtypes = [p]
-        L.pathopt_set_condition.argtypes = [u64, p, p]
-        for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
-                   L.pathopt_fused_structured_round, L.pathopt_dp_forward,
-                   L.pathopt_dp_resident,
-                   L.pathopt_graph_versions, L.pathopt_cond_handle,
-                   L.pathopt_cond_node, L.pathopt_capture_to,
-                   L.pathopt_capture_end, L.pathopt_set_condition):
-            fn.restype = ctypes.c_int
-        L.pathopt_error_string.argtypes = [i]
-        L.pathopt_error_string.restype = ctypes.c_char_p
-        _lib = L
+        with profiling.setup_span("kernels", "build or load"):
+            _lib = _load()
     return _lib
+
+
+def _load():
+    """Build (where needed) and load the library; declare every
+    function's arguments and result."""
+    L = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L.pathopt_fused_factor.argtypes = [p, p, p, p, i, i, i, p]
+    L.pathopt_fused_admm_round.argtypes = (
+        [p] * 19 + [i] * 7 + [f] * 3 + [p])
+    L.pathopt_fused_structured_round.argtypes = (
+        [p] * 12 + [i] * 9 + [f] * 3 + [p])
+    L.pathopt_dp_forward.argtypes = [p] * 8 + [i] * 9 + [f, p]
+    L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
+    u64 = ctypes.c_ulonglong
+    L.pathopt_graph_versions.argtypes = [p, p]
+    L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
+    L.pathopt_cond_node.argtypes = [p, u64, i, p]
+    L.pathopt_capture_to.argtypes = [p, p]
+    L.pathopt_capture_end.argtypes = [p]
+    L.pathopt_set_condition.argtypes = [u64, p, p]
+    L.pathopt_stamp.argtypes = [p, p] + [i] * 3 + [p] + [i] * 2 + [p]
+    L.pathopt_timer_probe.argtypes = [p, i, p]
+    L.pathopt_capture_nodes.argtypes = [p, p]
+    L.pathopt_graph_nodes.argtypes = [p, p]
+    for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
+               L.pathopt_fused_structured_round, L.pathopt_dp_forward,
+               L.pathopt_dp_resident,
+               L.pathopt_graph_versions, L.pathopt_cond_handle,
+               L.pathopt_cond_node, L.pathopt_capture_to,
+               L.pathopt_capture_end, L.pathopt_set_condition,
+               L.pathopt_stamp, L.pathopt_timer_probe,
+               L.pathopt_capture_nodes, L.pathopt_graph_nodes):
+        fn.restype = ctypes.c_int
+    L.pathopt_error_string.argtypes = [i]
+    L.pathopt_error_string.restype = ctypes.c_char_p
+    return L
 
 
 def check(err: int, name: str):
@@ -355,3 +372,47 @@ def set_condition(handle: int, flag: torch.Tensor, stream: int):
                          f"{tuple(flag.shape)}, expected a 0-d bool")
     _graph_check(lib().pathopt_set_condition(handle, ptr(flag), stream),
                  "set_condition")
+
+
+# ------------------------------ trace stamps ---------------------------------
+#
+# ``graph_cond.cu``'s stamps and node counts, for a traced compiled call
+# (``profiling``, ``torchutil.Segments``).
+
+
+def stamp(ring: torch.Tensor, counter: torch.Tensor, slot: int,
+          values: torch.Tensor | None, n_values: int, advance: bool,
+          stream: int):
+    """Launch a stamp: %globaltimer into ``ring[counter % rows, slot]``
+    (``ring`` (rows, slots) int64, ``counter`` (1,) int64), then the first
+    ``n_values`` of ``values`` (int64) into the slots after it; with
+    ``advance`` the counter moves on a row."""
+    rows, slots = ring.shape
+    if not 0 <= slot <= slots - 1 - n_values:
+        raise ValueError(f"stamp: slot {slot} (+{n_values}) outside "
+                         f"{slots} slots")
+    _graph_check(lib().pathopt_stamp(
+        ptr(ring), ptr(counter), slot, slots, rows, ptr_or_null(values),
+        n_values, int(advance), stream), "stamp")
+
+
+def timer_probe(out: torch.Tensor, stream: int):
+    """Fill ``out`` ((n,) int64) with n back-to-back %globaltimer reads."""
+    _graph_check(lib().pathopt_timer_probe(ptr(out), out.numel(), stream),
+                 "timer probe")
+
+
+def capture_nodes(stream: int) -> int:
+    """The nodes so far of the graph ``stream`` is capturing into."""
+    n = ctypes.c_ulonglong()
+    _graph_check(lib().pathopt_capture_nodes(stream, ctypes.byref(n)),
+                 "capture nodes")
+    return n.value
+
+
+def graph_nodes(graph: int) -> int:
+    """The nodes of ``graph`` (a conditional node's body)."""
+    n = ctypes.c_ulonglong()
+    _graph_check(lib().pathopt_graph_nodes(graph, ctypes.byref(n)),
+                 "graph nodes")
+    return n.value

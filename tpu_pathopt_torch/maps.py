@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_pathopt_torch import profiling
 from tpu_pathopt_torch.torchutil import resolve_device
 
 _INF_PX = 1.0e4  # larger than any realistic map dimension in pixels
@@ -118,12 +119,18 @@ def build_map(obstacle_mask, resolution: float = 0.2, chunk: int = 64,
               pad_shape=None, device=None) -> GridMap:
     """Build a GridMap (ESDF in meters) from a boolean obstacle mask
     (True = occupied) on ``device`` (``cuda`` unless the caller asks for
-    another)."""
-    mask = torch.as_tensor(obstacle_mask, dtype=torch.bool,
-                           device=resolve_device(device))
-    esdf = euclidean_distance_transform(mask, chunk=chunk) * resolution
-    return from_esdf(esdf, resolution=resolution, pad_shape=pad_shape,
-                     device=mask.device)
+    another). A set-up span (``profiling.SETUP``, ``map``) times it, the
+    device's work included."""
+    dev = resolve_device(device)
+    with profiling.setup_span("map", "x".join(map(str, np.shape(
+            obstacle_mask)))):
+        mask = torch.as_tensor(obstacle_mask, dtype=torch.bool, device=dev)
+        esdf = euclidean_distance_transform(mask, chunk=chunk) * resolution
+        gm = from_esdf(esdf, resolution=resolution, pad_shape=pad_shape,
+                       device=mask.device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return gm
 
 
 def grid_map_from_image(img, resolution: float = 0.2, occupied_below: int = 128,

@@ -29,7 +29,8 @@ import functools
 import torch
 
 from tpu_pathopt_torch import bounds as bounds_mod
-from tpu_pathopt_torch import bspline, corridor, maps, refpath, splines
+from tpu_pathopt_torch import (bspline, corridor, maps, profiling, refpath,
+                               splines)
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.geometry import (constrain_angle, global_to_local,
                                         normal_offset)
@@ -527,7 +528,6 @@ def solve_batch_profiled(gm: maps.GridMap, scenarios: Scenario,
     make the batch slower than :func:`solve_batch_jit`. ``stats``, if
     given, receives each QP's rounds as :func:`solve_batch` gives them,
     read from the device after the call."""
-    from tpu_pathopt_torch import profiling
     if settings is None:
         settings = config.qp_settings()
     dev = resolve_device(device)
@@ -622,20 +622,40 @@ def compiled_call(gm: maps.GridMap, scenarios: Scenario,
     ``return_warm`` as in :func:`_pipeline`, ``tail_key`` the static
     arguments ``tail`` depends on (part of the cache key). ``stats``, if
     given, receives each QP's rounds as :func:`solve_batch` gives them,
-    read from the device after the call."""
+    read from the device after the call. With tracing on
+    (``profiling.traced``) the call goes to the key's traced twin, whose
+    graph stamps each stage boundary and loop, and records its spans."""
     if settings is None:
         settings = config.qp_settings()
     dev = resolve_device(device)
     _set_precision()
-    out, segs = compiled(
-        COMPILED, (config, settings, return_warm, tail_key),
-        lambda drv, gm_s, scs_s, warm_s: _pipeline(
-            drv, gm_s, scs_s, config, settings, None, None, warm_s,
-            return_warm, tail), (gm, scenarios, warm), dev)
+
+    def program(drv, gm_s, scs_s, warm_s):
+        return _pipeline(drv, gm_s, scs_s, config, settings, None,
+                         drv.mark if drv.traced else None, warm_s,
+                         return_warm, tail)
+
+    key = (config, settings, return_warm, tail_key)
+    tracer = profiling.ACTIVE
+    if tracer is not None:
+        key += ("traced",)
+    out, segs = compiled(COMPILED, key, program, (gm, scenarios, warm), dev,
+                         tracer)
     if stats is not None:
         stats.update({f"{name}_rounds": n
                       for name, n in segs.sync().items()})
     return out
+
+
+def last_compiled(traced: bool = False):
+    """The key of :func:`compiled_call` called last with tracing on
+    (``traced``) or off: (its static arguments ``(config, settings,
+    return_warm, tail_key)``, its device, its ``Segments``), or None before
+    the first such call."""
+    for (key, dev, _), segs in reversed(COMPILED.entries.items()):
+        if segs.traced == traced:
+            return key[:4], dev, segs
+    return None
 
 
 def solve_batch_jit(gm: maps.GridMap, scenarios: Scenario,

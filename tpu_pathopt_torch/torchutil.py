@@ -5,10 +5,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+from array import array
 
 import torch
 
-from tpu_pathopt_torch import kernels
+from tpu_pathopt_torch import kernels, profiling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -213,6 +214,12 @@ def _bump(tally: torch.Tensor, i: int):
     tally[i:i + 1].add_(1)
 
 
+# A traced key's stamp ring (``profiling``): a row a call, the oldest
+# overwritten, and the slots of a row.
+RING_ROWS = 4096
+RING_SLOTS = 32
+
+
 class Segments:
     """The runner of one program: the eager path's stage chain, or one
     compiled call's. The program's straight-line pieces are segments,
@@ -240,9 +247,17 @@ class Segments:
       refactor counts kept on the device, checks carried there.
 
     A compiled call's launch counts and round counts stay on the device
-    until :meth:`sync` reads them (``kernels.sync_counts``)."""
+    until :meth:`sync` reads them (``kernels.sync_counts``).
 
-    def __init__(self, device=None, capture: bool = False):
+    A ``traced`` runner (the traced key of a compiled call, ``profiling``)
+    stamps its call: at each stage boundary the program marks
+    (:meth:`mark`), before and after each loop, and where the caller asks
+    (:meth:`stamp`); on the card each stamp is a node of the graph, written
+    into a ring on the device, and the capture counts the graph's nodes by
+    stage and by body."""
+
+    def __init__(self, device=None, capture: bool = False,
+                 traced: bool = False):
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
         self.capture = capture
@@ -253,7 +268,7 @@ class Segments:
         # one on the card.
         self.mode = "eager"
         self.static_in = None
-        self.capture_seconds = 0.0
+        self.setup_spans: list = []   # its warm-up and capture
         self.graph = None
         self.out = None
         self.conditional_nodes = 0
@@ -274,6 +289,81 @@ class Segments:
             self._body_streams = [torch.cuda.Stream(self.device)
                                   for _ in range(2)]
             self._depth = 0
+        self.traced = traced
+        if traced:
+            self._trace_init()
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds the key's warm-up and capture took (its set-up spans)."""
+        return sum(b - a for name, _, a, b in self.setup_spans
+                   if name in ("warm_up", "capture")) / 1e9
+
+    # ------------------------------ stamps -----------------------------------
+
+    def _trace_init(self):
+        self.slots: dict = {}       # stamp name -> (slot, width)
+        self.calls_made = 0         # calls stamped (the ring's next row)
+        self.stage = None           # the stage the program is in
+        self.stage_nodes: dict = {}  # stage -> top-level nodes, stamps out
+        self.body_nodes: dict = {}  # "<loop>.round" / ".refactor" -> nodes
+        self.loop_stage: dict = {}  # loop -> its stage
+        self.stamp_nodes = 0        # stamp nodes among the top-level ones
+        self._mark_nodes = 0
+        if self.device.type == "cuda":
+            self.ring = torch.zeros((RING_ROWS, RING_SLOTS),
+                                    dtype=torch.int64, device=self.device)
+            self.counter = torch.zeros(1, dtype=torch.int64,
+                                       device=self.device)
+        else:
+            self.ring = array("q", bytes(8 * RING_ROWS * RING_SLOTS))
+            self.counter = 0
+
+    def stamp(self, name: str, values=None, last: bool = False):
+        """Stamp the clock into slot ``name`` of the call's row: on the card
+        %globaltimer by a one-thread kernel (a graph node where a capture
+        is in progress), on the CPU ``time.perf_counter_ns()``. ``values``
+        (a loop's rounds and refactors: on the card its tally, whose first
+        two entries are the call's; on the CPU two ints) go into the two
+        slots after it. ``last`` moves the ring to the next row. In a
+        warm-up the slot is only assigned."""
+        slot = self.slots.get(name)
+        if slot is None:
+            width = 1 if values is None else 3
+            start = sum(w for _, w in self.slots.values())
+            if start + width > RING_SLOTS:
+                raise RuntimeError(f"stamp {name!r}: the ring's {RING_SLOTS} "
+                                   "slots are taken")
+            slot = self.slots[name] = (start, width)
+        if self.mode == "warm":
+            return
+        i = slot[0]
+        if last:
+            self.calls_made += 1
+        if self.device.type == "cuda":
+            kernels.stamp(self.ring, self.counter, i, values,
+                          0 if values is None else 2, last, self._stream())
+            if torch.cuda.is_current_stream_capturing():
+                self.stamp_nodes += 1
+            return
+        base = (self.counter % RING_ROWS) * RING_SLOTS + i
+        self.ring[base] = time.perf_counter_ns()
+        if values is not None:
+            self.ring[base + 1], self.ring[base + 2] = values
+        if last:
+            self.counter += 1
+
+    def mark(self, name: str):
+        """A stage boundary of a traced program (the ``hook`` of
+        ``pipeline._pipeline``): its stamp, and in a capture the top-level
+        nodes the stage before it added, stamps left out."""
+        if self.mode == "capture":
+            n = kernels.capture_nodes(self._stream()) - self.stamp_nodes
+            if self.stage is not None:
+                self.stage_nodes[self.stage] = n - self._mark_nodes
+            self._mark_nodes = n
+        self.stage = name
+        self.stamp(name)
 
     def load(self, obj):
         """The key's static copy of the caller's inputs ``obj`` (a pytree):
@@ -326,14 +416,21 @@ class Segments:
         ``kernels.fill_key``); a compiled call reuses the warm-up's. Returns ``(run, rounds)``:
         rounds a Python int on the eager path, in a compiled call a 0-d
         int64 device tensor (read only by :meth:`sync`)."""
+        if self.traced:
+            self.loop_stage[name] = self.stage
+            self.stamp(name + ".start")
         if self.mode == "capture":
-            return self._loop_graph(name, run, round_fn, refactor_fn, start)
+            run, rounds = self._loop_graph(name, run, round_fn, refactor_fn,
+                                           start)
+            if self.traced:
+                self.stamp(name + ".stop", self.loops[name])
+            return run, rounds
         compiled = self.mode == "run"
         tally = (self._tally(self.loops, name, 4) if self.mode != "eager"
                  else None)
         if compiled:
             tally[:2].zero_()
-        rounds = 0
+        rounds = refactors = 0
         active = start
         while active:
             run = self._body(name, ".round", round_fn, run)
@@ -349,8 +446,12 @@ class Segments:
             active, need = flags[0], flags[1]
             if need and refactor_fn is not None:
                 run = self._body(name, ".refactor", refactor_fn, run)
+                refactors += 1
                 if compiled:
                     _bump(tally, 1)
+        if self.traced:
+            self.stamp(name + ".stop", tally if self.device.type == "cuda"
+                       else (rounds, refactors))
         if not compiled:
             return run, rounds
         tally[2:] += tally[:2]
@@ -363,7 +464,8 @@ class Segments:
         next test from ``run.flags[0]``."""
         tally = self._tally(self.loops, name, 4)
         tally[:2].zero_()
-        with self._node(True, default=int(start)) as handle:
+        with self._node(True, default=int(start),
+                        label=name + ".round") as handle:
             run = self._body(name, ".round", round_fn, run)
             _bump(tally, 0)
             if refactor_fn is not None:
@@ -375,7 +477,7 @@ class Segments:
     def _if(self, name, run, refactor_fn, tally):
         """The refactor under an IF node on ``run.flags[1]``, counted in
         ``tally[1]``."""
-        with self._node(False, flag=run.flags[1]):
+        with self._node(False, flag=run.flags[1], label=name + ".refactor"):
             run = self._body(name, ".refactor", refactor_fn, run)
             _bump(tally, 1)
         return run
@@ -485,14 +587,16 @@ class Segments:
         return torch.cuda.current_stream(self.device).cuda_stream
 
     @contextlib.contextmanager
-    def _node(self, is_while: bool, default: int = 0, flag=None):
+    def _node(self, is_while: bool, default: int = 0, flag=None,
+              label: str | None = None):
         """Add a WHILE (or IF, on the 0-d bool ``flag``) node to the graph
         the current stream is capturing into and capture the block's work
         into its body, on a stream of the body's depth. PyTorch routes a
         capture's allocations to its pool by the capture's id, and a body
         is a capture of its own: the key's pool is handed to the body's
         stream for the block and back to the parent's after it. Yields the
-        node's handle."""
+        node's handle. A traced runner counts the body's nodes under
+        ``label``."""
         s = self._stream()
         handle = kernels.cond_handle(s, default, assign_default=is_while)
         if flag is not None:
@@ -514,6 +618,8 @@ class Segments:
                     finally:
                         self._depth -= 1
                         kernels.capture_end(stream.cuda_stream)
+                    if self.traced and label is not None:
+                        self.body_nodes[label] = kernels.graph_nodes(body)
                 finally:
                     torch._C._cuda_endAllocateToPool(dev, self.pool)
                     torch._C._cuda_releasePool(dev, self.pool)
@@ -529,7 +635,10 @@ class Segments:
         key's graph (captured by the first call), on the CPU a run of the
         program (see the class). Returns the program's result: on CUDA the
         graph's own tensors, rewritten by every replay."""
-        static = self.load(inputs)
+        return self.run(program, self.load(inputs))
+
+    def run(self, program, static):
+        """:meth:`call` on inputs already in the key's copy (:meth:`load`)."""
         if not self.capture:
             guard = CALL_GUARD
             if guard is not None and not self._warm:
@@ -547,8 +656,14 @@ class Segments:
 
     def _warm_up(self, program, static):
         self.mode = "warm"
-        program(self, *static)
+        with profiling.setup_span("warm_up", self._label(),
+                                  into=self.setup_spans):
+            program(self, *static)
+        profiling.COUNTS["warm_ups"] += 1
         self._warm = True
+
+    def _label(self) -> str:
+        return "traced" if self.traced else ""
 
     def _counted(self, program, static):
         """Run the program, keeping its launches outside the loops as a
@@ -564,19 +679,22 @@ class Segments:
 
     def _capture(self, program, static):
         kernels.require_conditional_nodes()
-        t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         side = self.stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self._warm_up(program, static)
         self.mode = "capture"
+        if self.traced:
+            self.stage, self._mark_nodes = None, 0
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=side):
-            out = self._counted(program, static)
+        with profiling.setup_span("capture", self._label(),
+                                  into=self.setup_spans):
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+                out = self._counted(program, static)
+        profiling.COUNTS["captures"] += 1
         cur.wait_stream(side)
         self.graph, self.out = graph, out
-        self.capture_seconds += time.perf_counter() - t0
 
     def _called(self):
         self.replays += 1
@@ -617,7 +735,8 @@ class Segments:
 EAGER = Segments()
 
 
-def compiled(cache: "SegmentCache", key, program, inputs: tuple, device):
+def compiled(cache: "SegmentCache", key, program, inputs: tuple, device,
+             tracer: "profiling.Tracer | None" = None):
     """One compiled call of ``program(drv, *inputs)`` (a tuple of pytrees)
     on ``device``, through the :class:`Segments` that ``cache`` keeps for
     the static ``key`` (the arguments ``program`` closes over), the device
@@ -626,12 +745,39 @@ def compiled(cache: "SegmentCache", key, program, inputs: tuple, device):
     (:meth:`Segments.call`). The result is cloned out of the graph's
     memory, so a later call never changes a result already returned.
     Returns (result, the key's Segments); its round counts stay on the
-    device until :meth:`Segments.sync` reads them."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    segs = cache.get((key, dev, signature(inputs)), dev)
-    return tree_map(torch.clone, segs.call(program, inputs)), segs
+    device until :meth:`Segments.sync` reads them.
+
+    With a ``tracer`` (tracing on, ``profiling.traced``; ``key`` then says
+    so) the key's runner is a traced one, the call's host spans go to
+    ``tracer`` (``entry``, and in it ``key``, ``load``, ``replay``,
+    ``clone``) and the device is stamped before the input copy (``load``)
+    and after the result clone (``clone``, which ends the call's row)."""
+    tr = tracer
+    if tr is not None:
+        tr.begin_call("key")
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        segs = cache.get((key, dev, signature(inputs)), dev,
+                         traced=tr is not None)
+        if tr is not None:
+            tr.bind(segs)
+            tr.step("load")
+            segs.stamp("load")
+        static = segs.load(inputs)
+        if tr is not None:
+            tr.step("replay")
+        out = segs.run(program, static)
+        if tr is not None:
+            tr.step("clone")
+        out = tree_map(torch.clone, out)
+        if tr is not None:
+            segs.stamp("clone", last=True)
+    finally:
+        if tr is not None:
+            tr.end_call()
+    return out, segs
 
 
 class SegmentCache:
@@ -644,13 +790,16 @@ class SegmentCache:
         self.maxsize = maxsize
         self.entries: dict = {}
 
-    def get(self, key, device) -> Segments:
-        """The key's segments, made on its first call."""
+    def get(self, key, device, traced: bool = False) -> Segments:
+        """The key's segments, made on its first call (``traced``: a
+        traced runner, see :class:`Segments`)."""
         segs = self.entries.pop(key, None)
         if segs is None:
-            segs = Segments(device, capture=device.type == "cuda")
+            segs = Segments(device, capture=device.type == "cuda",
+                            traced=traced)
         self.entries[key] = segs
         while len(self.entries) > self.maxsize:
+            profiling.COUNTS["evictions"] += 1
             self.entries.pop(next(iter(self.entries))).sync(check=False)
         return segs
 
