@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels and the conditional graph nodes of the
+It builds the five CUDA kernels and the conditional graph nodes of the
 compiled calls (``graph_cond.cu``) from ``tpu_pathopt_torch/csrc`` (nvcc
 for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
@@ -47,7 +47,10 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    tie-heavy lattice at B 64), at 300 (B 32) and at 137 (B 33), bit for
    bit the plain version (``check_k4_clusters``); and K2 and K3 one knot
    past their limits, K4 at 1025 laterals and in clusters of 9 refused,
-   and a K4 plan the C launcher does not take raising;
+   and a K4 plan the C launcher does not take raising; then K5 (the
+   geometry stage, ``csrc/geometry.cu``) against the plain chain on the
+   card at B 256 and B 1, bit for bit, timed beside it
+   (``check_geometry``), and refused past its plan's limits;
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
@@ -1124,6 +1127,104 @@ def check_no_fallback(captured: dict):
     emit(dict(phase="kernel", name="no_fallback", raised=raised))
 
 
+# ------------------------------ K5, geometry ---------------------------------
+
+# K5 replaces no Pallas kernel: the geometry stage's chain
+# (tpu_pathopt/refpath.py's lax.scan at :97 and tpu_pathopt/bounds.py's
+# update_bounds). It is checked and timed at the main path's shapes, B 256
+# and B 1 (M 32, N 128), beside the plain chain on the card.
+GEOMETRY_BATCHES = (256, 1)
+GEOMETRY_SOURCE = "tpu_pathopt_torch/csrc/geometry.cu"
+GEOMETRY_REPLACES = ("tpu_pathopt/refpath.py:97 (lax.scan), "
+                     "tpu_pathopt/bounds.py (update_bounds)")
+
+
+def geometry_stage_inputs(gm, scs, cfg) -> tuple:
+    """(gm, scs, xs2, ys2, cor, l_post): the geometry stage's inputs as the
+    stages before it make them."""
+    settings = cfg.qp_settings()
+    prep = pipeline.stage_prep(scs, cfg)
+    smooth = pipeline.stage_smooth(gm, prep, cfg, settings)
+    xs2, ys2, cor = pipeline.stage_corridor(gm, scs, smooth, cfg)
+    l_post, _ = pipeline.stage_post_smooth(cor, cfg, settings)
+    return gm, scs, xs2, ys2, cor, l_post
+
+
+def geometry_work(args, cfg) -> tuple[int, int]:
+    """(bytes, float operations) of K5 on ``args``: each input read once
+    (the ESDF's stencil table whole), each output written once; the
+    operations of the Newton steps (about 40 a step), the probes (about 25
+    each: 2 sides x 26 and the state's own, a (axle, knot)) and the
+    resample (about 60 a step)."""
+    gm, scs, xs2, ys2, cor, l_post = args
+    B, M = l_post.shape
+    S, N = xs2.s.shape[-1], cfg.n_knots
+    ins = B * (9 * S + 3 * M + 5) * 4 + B * 2 * 8 + gm.quad.numel() * 4
+    outs = B * (15 * N + 2) * 4 + B * (8 + 3)
+    per_axle = 2 * cfg.newton_iters * 40 + (2 * 26 + 1) * 25
+    flops = B * (N * 60 + 2 * N * per_axle + 256 * 40)
+    return ins + outs, flops
+
+
+def geometry_chain_steps(args, cfg) -> int:
+    """K5's dependent steps: the refit's two Thomas passes over the M
+    layers, the trim's Newton steps, the resample's N steps and an axle's
+    Newton steps."""
+    M = args[-1].shape[1]
+    return 2 * M + cfg.newton_iters + cfg.n_knots + cfg.newton_iters
+
+
+def check_geometry(gm, scs, cfg) -> dict:
+    """K5 against the plain chain on the card at GEOMETRY_BATCHES, every
+    output bit for bit; each timed (``ms``: device time, the stream held
+    busy; ``call_ms``: as the host issues it) beside its bound, its chain
+    and the plain chain's time. Returns the lines by shape."""
+    rows = {}
+    for b in GEOMETRY_BATCHES:
+        args = geometry_stage_inputs(gm, tree_map(lambda a, b=b: a[:b], scs),
+                                     cfg)
+        got = pipeline.geometry_kernel(*args, cfg)
+        want = pipeline._geometry_plain(*args, cfg)
+        torch.cuda.synchronize()
+        unequal = bit_unequal(got, want)
+        ms = cuda_time_ms(lambda: pipeline.geometry_kernel(*args, cfg))
+        call_ms = cuda_time_ms(lambda: pipeline.geometry_kernel(*args, cfg),
+                               hold=False)
+        plain_ms = cuda_time_ms(lambda: pipeline._geometry_plain(*args, cfg),
+                                reps=SLOW_PLAIN_REPS, warmup=1)
+        nbytes, flops = geometry_work(args, cfg)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        steps = geometry_chain_steps(args, cfg)
+        line = dict(phase="kernel", name="geometry", shape=f"B={b}",
+                    held=True, bit_equal=not unequal, unequal=unequal,
+                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    plain_reps=SLOW_PLAIN_REPS, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    chain_steps=steps, ns_per_chain_step=ms * 1e6 / steps,
+                    plan=list(pipeline.geometry_plan(
+                        args[2].s.shape[-1], args[-1].shape[1],
+                        cfg.n_knots)))
+        emit(line)
+        if unequal:
+            raise AssertionError(f"geometry [B={b}] differs from the plain "
+                                 f"chain: {unequal}")
+        rows[f"B={b}"] = line
+    # Past the plan's limits a CUDA input raises before any launch.
+    before = dict(kernels.launches)
+    try:
+        pipeline.geometry_kernel(*args, dataclasses.replace(
+            cfg, n_knots=pipeline.GEO_MAX_KNOTS + 1))
+    except ValueError as err:
+        emit(dict(phase="kernel", name="geometry", shape="past_limit",
+                  raised=str(err)))
+    else:
+        raise AssertionError("geometry: a plan past its limits launched")
+    if kernels.launches != before:
+        raise AssertionError("geometry: a refused plan counted a launch")
+    return rows
+
+
 # ------------------------------- main path -----------------------------------
 
 def check_outputs(res, cfg):
@@ -1411,18 +1512,22 @@ def check_card_geometry(device="cuda") -> dict:
     """pipeline.stage_geometry at scenarios.STRETCH_CONFIG on the five
     lanes of inputs the card once turned NaN (golden.card_geometry), on
     ``device`` and on the CPU: every lane's reference finite on its valid
-    knots, n_valid equal, the reference and bounds within GEOMETRY_TOL.
-    Before the geometry stage's refit summed the arc length in float64
-    the card's float32 sum made a zero knot interval on every one of these
-    lanes (n_valid 0, the reference NaN)."""
+    knots, n_valid equal, the reference and bounds within GEOMETRY_TOL; on
+    the card the stage is K5, held there bit for bit to the plain chain
+    (``pipeline._geometry_plain``). Before the geometry stage's refit summed
+    the arc length in float64 the card's float32 sum made a zero knot
+    interval on every one of these lanes (n_valid 0, the reference NaN)."""
     cfg = PlannerConfig(**scenarios.STRETCH_CONFIG)
     out = {}
     for dev in (device, "cpu"):
         d = golden.card_geometry(dev)
-        out[dev] = geometry_arrays(pipeline.stage_geometry(
-            d["gm"], d["scs"], d["xs2"], d["ys2"], d["cor"], d["l_post"],
-            cfg))
+        args = (d["gm"], d["scs"], d["xs2"], d["ys2"], d["cor"], d["l_post"])
+        out[dev] = geometry_arrays(pipeline.stage_geometry(*args, cfg))
+        if dev == device:
+            card_plain = geometry_arrays(pipeline._geometry_plain(*args, cfg))
     got, want = out[device], out["cpu"]
+    plain_unequal = [f for f in got if not np.array_equal(
+        got[f], card_plain[f], equal_nan=f != "n_valid")]
     n = np.minimum(got["n_valid"], want["n_valid"])
     mask = np.arange(cfg.n_knots)[None] < n[:, None]
     finite = [bool(np.isfinite(got[f][i][mask[i]]).all()
@@ -1435,11 +1540,11 @@ def check_card_geometry(device="cuda") -> dict:
                   lanes=d["lane"].tolist(), rounds=d["run"].tolist(),
                   n_valid=got["n_valid"].tolist(),
                   n_valid_cpu=want["n_valid"].tolist(), finite=finite,
-                  max_abs_diff=diffs)
+                  max_abs_diff=diffs, unequal_to_card_plain=plain_unequal)
     emit(report)
     bad = [f for f, v in diffs.items()
            if not v <= GEOMETRY_TOL.get(f, GEOMETRY_TOL["bounds"])]
-    if (not all(finite) or bad or (got["n_valid"] == 0).any()
+    if (not all(finite) or bad or plain_unequal or (got["n_valid"] == 0).any()
             or not np.array_equal(got["n_valid"], want["n_valid"])):
         raise AssertionError(f"card_geometry: {report}")
     return report
@@ -2922,6 +3027,7 @@ def main() -> int:
     check_cluster_path(captured)
     check_k4_clusters(captured)
     check_no_fallback(captured)
+    geometry_rows = check_geometry(gm, scs, cfg)
 
     eager = {}
     report, launches = drive_main_path(gm, scs, cfg, results=eager)
@@ -2967,6 +3073,13 @@ def main() -> int:
                          plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
                          bound_by=p["bound_by"], library_ms=None,
                          by_shape=by_shape[name]))
+    g = geometry_rows[f"B={BATCH}"]
+    rows.append(dict(name="geometry", route="cuda", source=GEOMETRY_SOURCE,
+                     replaces=GEOMETRY_REPLACES,
+                     launches=launches["geometry"], max_abs_err=0.0,
+                     ms=g["ms"], plain_ms=g["plain_ms"],
+                     bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                     library_ms=None, by_shape=geometry_rows))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -170,8 +170,8 @@ def test_a_failed_check_is_dropped_unread(drop):
 @pytest.fixture
 def counted(monkeypatch):
     """The kernels' wrappers count a launch on the CPU too, where they take
-    their plain versions, under the key the card's launch has (c = 1: no
-    cluster at these sizes)."""
+    their plain versions (K5: the geometry stage's plain chain), under the
+    key the card's launch has (c = 1: no cluster at these sizes)."""
     def wrap(mod, attr, key):
         fn = getattr(mod, attr)
 
@@ -186,9 +186,20 @@ def counted(monkeypatch):
     wrap(fused_rounds, "fused_structured_round", lambda Ci, Wp, ac, *a,
          **kw: f"nb={Ci.shape[1]},r={ac.shape[1]},N={Ci.shape[0]},c=1")
     monkeypatch.setattr(corridor, "dp_forward", _count_dp(corridor.dp_forward))
+    monkeypatch.setattr(pipeline, "_geometry_plain",
+                        _count_geometry(pipeline._geometry_plain))
     kernels.reset_launches()
     yield
     kernels.reset_launches()
+
+
+def _count_geometry(fn):
+    def counting(gm, scs, xs2, ys2, cor, l_post, config):
+        out = fn(gm, scs, xs2, ys2, cor, l_post, config)
+        kernels.count_launch("geometry",
+                             f"M={l_post.shape[1]},N={config.n_knots}")
+        return out
+    return counting
 
 
 def _count_dp(fn):

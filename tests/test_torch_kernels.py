@@ -984,7 +984,8 @@ def test_wrappers_count_only_kernel_launches():
     corridor.dp_forward(*(t(a) for a in random_lattice()), 16.0)
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
     assert set(kernels.launches) == {"fused_factor", "fused_admm_round",
-                                     "fused_structured_round", "dp_forward"}
+                                     "fused_structured_round", "dp_forward",
+                                     "geometry"}
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():

@@ -21,7 +21,7 @@ from tpu_pathopt_torch.refpath import CorridorBounds, RefStates
 
 _COARSE_DS = 0.3
 _FINE_DS = 0.05
-_SEARCH_RADIUS = 0.5
+SEARCH_RADIUS = 0.5
 _COARSE_STEPS = 20        # 6.0 m / 0.3 m
 _FINE_STEPS = 5           # int(0.3/0.05) - 1
 
@@ -38,7 +38,7 @@ def _march(gm: maps.GridMap, x, y, angle, steps: int, ds: float):
     i = torch.arange(1, steps + 1, dtype=torch.float32, device=x.device)
     px = x[..., None] + i * ds * torch.cos(angle)[..., None]
     py = y[..., None] + i * ds * torch.sin(angle)[..., None]
-    return _first_true(maps.obstacle_distance(gm, px, py) < _SEARCH_RADIUS)
+    return _first_true(maps.obstacle_distance(gm, px, py) < SEARCH_RADIUS)
 
 
 def clearance_strict(gm: maps.GridMap, x, y, heading, config: PlannerConfig):
@@ -48,7 +48,7 @@ def clearance_strict(gm: maps.GridMap, x, y, heading, config: PlannerConfig):
     Like the JAX package, each side is refined along its own direction (the
     reference's right-side refinement probes mirrored positions)."""
     ang2 = torch.stack([heading + math.pi / 2, heading - math.pi / 2])
-    ok = maps.obstacle_distance(gm, x, y) > _SEARCH_RADIUS
+    ok = maps.obstacle_distance(gm, x, y) > SEARCH_RADIUS
 
     hits2 = _march(gm, x[None], y[None], ang2, _COARSE_STEPS, _COARSE_DS)
     base2 = torch.where(hits2 < _COARSE_STEPS,
@@ -59,12 +59,12 @@ def clearance_strict(gm: maps.GridMap, x, y, heading, config: PlannerConfig):
     step = base2[..., None] + i * _FINE_DS
     px = x[None, ..., None] + step * torch.cos(ang2)[..., None]
     py = y[None, ..., None] + step * torch.sin(ang2)[..., None]
-    good = _first_true(maps.obstacle_distance(gm, px, py) < _SEARCH_RADIUS)
+    good = _first_true(maps.obstacle_distance(gm, px, py) < SEARCH_RADIUS)
     ref2 = base2 + torch.clamp(good, max=_FINE_STEPS).to(torch.float32) \
         * _FINE_DS
     left_b, right_b = ref2[0], ref2[1]
 
-    diff_radius = config.car_width * 0.5 - _SEARCH_RADIUS
+    diff_radius = config.car_width * 0.5 - SEARCH_RADIUS
     left = left_b - diff_radius
     right = -(right_b - diff_radius)
     collapsed = left < right

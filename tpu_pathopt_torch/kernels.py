@@ -13,7 +13,8 @@ launches its kernel, and nowhere else, which adds one to ``launches[name]``
 and to ``shape_launches`` under the kernel and its block shape (for K2 and
 K3 also the knots and the launch plan's cluster size, e.g.
 ``fused_admm_round[nb=6,N=512,c=2]``; for K4 the laterals and the cluster
-size, ``dp_forward[K=135,c=1]``), so a run can show that the main path
+size, ``dp_forward[K=135,c=1]``; for K5 the corridor's layers and
+the knots, ``geometry[M=32,N=128]``), so a run can show that the main path
 went through each kernel at each of its shapes and plans. A captured CUDA
 graph launches its kernels at every replay without the wrappers running,
 and how often its loop bodies run is known only on the device: a compiled
@@ -21,6 +22,9 @@ call's counts are added when they are read (:func:`sync_counts`, which
 :func:`reset_launches` calls first), from the device's count of rounds and
 refactors times the launches each body's capture recorded.
 
+``geometry.cu`` (K5) is no TPU kernel's port either: it runs the geometry
+stage, which the JAX package leaves to XLA, as one launch
+(``pipeline.geometry_kernel``, its arguments :class:`GeometryArgs`).
 ``graph_cond.cu`` is no TPU kernel's port: it adds the conditional graph
 nodes of a compiled call's device-side loops (``torchutil.Segments``), and
 the stamps and node counts of a traced compiled call (``profiling``).
@@ -43,14 +47,15 @@ from tpu_pathopt_torch import profiling
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_factor.cu", "fused_admm_round.cu",
-           "fused_structured_round.cu", "dp_forward.cu", "graph_cond.cu")
+           "fused_structured_round.cu", "dp_forward.cu", "geometry.cu",
+           "graph_cond.cu")
 HEADERS = ("common.cuh", "btri_sweep.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel name -> launches since the last reset.
 launches = {"fused_factor": 0, "fused_admm_round": 0,
-            "fused_structured_round": 0, "dp_forward": 0}
+            "fused_structured_round": 0, "dp_forward": 0, "geometry": 0}
 # "name[shape]" (e.g. "fused_factor[nb=9]") -> launches since the last reset.
 shape_launches: dict = {}
 # Filled by build(): the commands, seconds, library path and nvcc output.
@@ -229,6 +234,7 @@ def _load():
         [p] * 12 + [i] * 9 + [f] * 3 + [p])
     L.pathopt_dp_forward.argtypes = [p] * 8 + [i] * 9 + [f, p]
     L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
+    L.pathopt_geometry.argtypes = [ctypes.POINTER(GeometryArgs), i, i, p]
     u64 = ctypes.c_ulonglong
     L.pathopt_graph_versions.argtypes = [p, p]
     L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
@@ -242,7 +248,7 @@ def _load():
     L.pathopt_graph_nodes.argtypes = [p, p]
     for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                L.pathopt_fused_structured_round, L.pathopt_dp_forward,
-               L.pathopt_dp_resident,
+               L.pathopt_dp_resident, L.pathopt_geometry,
                L.pathopt_graph_versions, L.pathopt_cond_handle,
                L.pathopt_cond_node, L.pathopt_capture_to,
                L.pathopt_capture_end, L.pathopt_set_condition,
@@ -252,6 +258,27 @@ def _load():
     L.pathopt_error_string.argtypes = [i]
     L.pathopt_error_string.restype = ctypes.c_char_p
     return L
+
+
+class GeometryArgs(ctypes.Structure):
+    """``csrc/geometry.cu``'s ``GeoArgs``, field for field: K5's device
+    pointers, then its shapes and switches, then the float32 roundings of
+    the chain's Python numbers."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "s2", "x2", "x2a", "x2b", "x2c", "y2", "y2a", "y2b", "y2c", "n2",
+            "layers_s", "l_post", "n_layers", "start_x", "start_y",
+            "start_heading", "target_x", "target_y", "quad", "ref", "bnd",
+            "init", "n_valid", "flags")]
+        + [(name, ctypes.c_int) for name in (
+            "batch", "S", "M", "N", "n_rows", "n_cols", "c_pad",
+            "newton_iters", "dynamic", "prescan", "with_center")]
+        + [(name, ctypes.c_float) for name in (
+            "row_c", "col_c", "inv_res", "half_x", "half_y", "ds",
+            "ds_shrink", "inv_k_span", "inv_ds", "full_s", "front_len",
+            "rear_len", "diff_radius", "safety_margin", "epsilon",
+            "init_limit")])
 
 
 def check(err: int, name: str):

@@ -23,14 +23,16 @@ and no explicit device it raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
 from tpu_pathopt_torch import bounds as bounds_mod
-from tpu_pathopt_torch import (bspline, corridor, maps, profiling, refpath,
-                               splines)
+from tpu_pathopt_torch import (bspline, corridor, kernels, maps, profiling,
+                               refpath, splines)
 from tpu_pathopt_torch.config import PlannerConfig
 from tpu_pathopt_torch.geometry import (constrain_angle, global_to_local,
                                         normal_offset)
@@ -192,6 +194,16 @@ def stage_post_smooth(cor, config: PlannerConfig, settings: QPSettings,
 
 def _geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
               config: PlannerConfig):
+    """The geometry stage: K5 (:func:`geometry_kernel`) on CUDA tensors,
+    the plain chain (:func:`_geometry_plain`) on CPU tensors."""
+    if kernels.kernel_device(l_post) is None:
+        return _geometry_plain(gm, scs, xs2, ys2, cor, l_post, config)
+    return geometry_kernel(gm, scs, xs2, ys2, cor, l_post, config)
+
+
+def _geometry_plain(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+                    config: PlannerConfig):
+    """The geometry stage as PyTorch tensor code, K5's plain version."""
     cfg = config
     ref_dir = splines.heading(xs2, ys2, cor.layers_s)
     x3, y3 = normal_offset(splines.evaluate(xs2, cor.layers_s),
@@ -229,6 +241,126 @@ def _geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
     n_valid = torch.minimum(ref.n_valid, cb.n_valid)
     ref = dataclasses.replace(ref, n_valid=n_valid)
     return ref, cb, init_offset, init_heading_error, ok_init, n_valid
+
+
+# K5's launch plan (csrc/geometry.cu checks the same limits and formula).
+GEO_MAX_SEGMENT_POINTS = 1024
+GEO_MAX_LAYERS = 1024
+GEO_MAX_KNOTS = 4096
+GEO_MAX_THREADS = 512
+GEO_MIN_THREADS = 128
+
+
+class GeometryPlan(NamedTuple):
+    threads: int   # a CTA's, one CTA a scenario
+    smem: int      # dynamic shared memory bytes
+
+
+def geometry_plan(S: int, M: int, N: int) -> GeometryPlan:
+    """K5's launch plan for S segment points (the smoothed route's knots),
+    M corridor layers and N knots: 2 N threads rounded up to a warp,
+    within [GEO_MIN_THREADS, GEO_MAX_THREADS]; 4 (9 S + 16 M + 4 N + 64)
+    bytes of shared memory (the two spline tables, the refit's sweeps, the
+    knots' states, reductions; at the limits 168,192 bytes, within a
+    block's 227 KB). Raises ValueError past the limits."""
+    for what, v, lo, hi in (("segment points", S, 2, GEO_MAX_SEGMENT_POINTS),
+                            ("corridor layers", M, 2, GEO_MAX_LAYERS),
+                            ("knots", N, 1, GEO_MAX_KNOTS)):
+        if not lo <= v <= hi:
+            raise ValueError(f"geometry: {v} {what}, the kernel takes "
+                             f"{lo} to {hi}")
+    threads = min(GEO_MAX_THREADS, max(GEO_MIN_THREADS, -(-2 * N // 32) * 32))
+    return GeometryPlan(threads, 4 * (9 * S + 16 * M + 4 * N + 64))
+
+
+def geometry_inputs(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+                    config: PlannerConfig, device) -> tuple:
+    """(plan, inputs): K5's plan (:func:`geometry_plan`) and its input
+    tensors in the order of ``kernels.GeometryArgs``, each made contiguous
+    (a copy where it is not) and checked to be a float32 (int64 for the
+    counts) tensor of its shape on ``device``; raises ValueError otherwise
+    or past the plan's limits."""
+    B, M = l_post.shape
+    S = xs2.s.shape[-1]
+    plan = geometry_plan(S, M, config.n_knots)
+    f32, i64 = torch.float32, torch.int64
+    R, C = gm.esdf.shape
+    want = {"xs2.s": (xs2.s, (B, S), f32), "xs2.y": (xs2.y, (B, S), f32),
+            "xs2.a": (xs2.a, (B, S - 1), f32),
+            "xs2.b": (xs2.b, (B, S - 1), f32),
+            "xs2.c": (xs2.c, (B, S - 1), f32), "ys2.y": (ys2.y, (B, S), f32),
+            "ys2.a": (ys2.a, (B, S - 1), f32),
+            "ys2.b": (ys2.b, (B, S - 1), f32),
+            "ys2.c": (ys2.c, (B, S - 1), f32),
+            "xs2.n_valid": (xs2.n_valid, (B,), i64),
+            "cor.layers_s": (cor.layers_s, (B, M), f32),
+            "l_post": (l_post, (B, M), f32),
+            "cor.n_layers": (cor.n_layers, (B,), i64),
+            "start_x": (scs.start_x, (B,), f32),
+            "start_y": (scs.start_y, (B,), f32),
+            "start_heading": (scs.start_heading, (B,), f32),
+            "target_x": (scs.target_x, (B,), f32),
+            "target_y": (scs.target_y, (B,), f32),
+            "gm.quad": (gm.quad, ((R - 1) * (C - 1), 4), f32)}
+    inputs = []
+    for name, (t, shape, dtype) in want.items():
+        t = t.contiguous()
+        kernels.expect(name, t, shape, dtype, torch.device(device))
+        inputs.append(t)
+    return plan, inputs
+
+
+def geometry_kernel(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
+                    config: PlannerConfig):
+    """:func:`_geometry_plain` as one launch of K5 (``csrc/geometry.cu``)
+    on the current stream, on :func:`geometry_plan`'s plan: the same
+    outputs, bit for bit on the card (the source's note says where not).
+    ``ys2`` must share ``xs2``'s knots and ``n_valid``, as
+    ``splines.fit_xy`` makes them. CPU tensors, and inputs that
+    :func:`geometry_inputs` refuses, raise ValueError before any launch."""
+    dev = kernels.kernel_device(l_post)
+    if dev is None:
+        raise ValueError("geometry_kernel: CPU tensors take _geometry_plain")
+    plan, inputs = geometry_inputs(gm, scs, xs2, ys2, cor, l_post, config,
+                                   dev)
+    B, M = l_post.shape
+    S = xs2.s.shape[-1]
+    N = config.n_knots
+    C = gm.esdf.shape[1]
+    f32, i64 = torch.float32, torch.int64
+    ref = torch.empty((5, B, N), dtype=f32, device=dev)
+    bnd = torch.empty((10, B, N), dtype=f32, device=dev)
+    init = torch.empty((2, B), dtype=f32, device=dev)
+    n_valid = torch.empty((B,), dtype=i64, device=dev)
+    flags = torch.empty((3, B), dtype=torch.bool, device=dev)
+    cfg = config
+    ds = cfg.output_spacing
+    hx, hy = gm.half_extent
+    args = kernels.GeometryArgs(
+        *(kernels.ptr(t) for t in inputs + [ref, bnd, init, n_valid, flags]),
+        B, S, M, N, gm.n_rows, gm.n_cols, C, cfg.newton_iters,
+        int(cfg.enable_dynamic_segmentation),
+        int(cfg.directional_prescan_fallback),
+        int(cfg.rough_constraints_far_away),
+        0.5 * gm.n_rows - 0.5, 0.5 * gm.n_cols - 0.5,
+        1.0 / gm.resolution, hx, hy, ds, ds - ds / 2.0,
+        1.0 / (refpath.LARGE_K - refpath.SMALL_K), 1.0 / ds, (N - 1) * ds,
+        cfg.front_length, cfg.rear_length,
+        cfg.car_width * 0.5 - bounds_mod.SEARCH_RADIUS, cfg.safety_margin,
+        cfg.epsilon, 75.0 * torch.pi / 180.0)
+    kernels.check(kernels.lib().pathopt_geometry(
+        ctypes.byref(args), plan.threads, plan.smem,
+        kernels.stream_ptr(dev)), "geometry")
+    kernels.count_launch("geometry", f"M={M},N={N}")
+    x, y, heading, k, s = ref
+    refs = refpath.RefStates(x=x, y=y, heading=heading, k=k, s=s,
+                             n_valid=n_valid, truncated=flags[0])
+    cb = CorridorBounds(
+        front_lb=bnd[0], front_ub=bnd[1], rear_lb=bnd[2], rear_ub=bnd[3],
+        center_lb=bnd[4], center_ub=bnd[5], blocked=flags[1],
+        n_valid=n_valid, front_x=bnd[6], front_y=bnd[7], rear_x=bnd[8],
+        rear_y=bnd[9], heading=heading)
+    return refs, cb, init[0], init[1], flags[2], n_valid
 
 
 def stage_geometry(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,

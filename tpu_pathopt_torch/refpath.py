@@ -14,6 +14,10 @@ import torch
 from tpu_pathopt_torch import splines
 from tpu_pathopt_torch.config import PlannerConfig
 
+# The curvature ramp of dynamic segmentation: the spacing shrinks toward
+# half of it as |k| goes from SMALL_K to LARGE_K (1/m).
+SMALL_K, LARGE_K = 0.08, 0.2
+
 
 @dataclasses.dataclass
 class RefStates:
@@ -69,7 +73,6 @@ def build_reference_from_spline(xs: splines.CubicSpline,
     dev = max_s.device
     if config.enable_dynamic_segmentation:
         ds_small = ds / 2.0
-        large_k, small_k = 0.2, 0.08
         tbl = splines.pack_xy(xs, ys)
         s_cur = torch.zeros_like(max_s)
         out = []
@@ -77,8 +80,8 @@ def build_reference_from_spline(xs: splines.CubicSpline,
             out.append(s_cur)
             _, _, dx, dy, ddx, ddy = splines.eval_xy_fused(xs, ys, tbl, s_cur)
             k_i = (dx * ddy - dy * ddx) / (dx * dx + dy * dy) ** 1.5
-            share = torch.clamp((torch.abs(k_i) - small_k)
-                                / (large_k - small_k), 0.0, 1.0)
+            share = torch.clamp((torch.abs(k_i) - SMALL_K)
+                                / (LARGE_K - SMALL_K), 0.0, 1.0)
             s_cur = s_cur + ds - share * (ds - ds_small)
         s = torch.stack(out, dim=-1)
         n_valid = torch.sum(s <= max_s[:, None], dim=-1)
