@@ -7,8 +7,16 @@ CPU, where the traced key runs the program on every call and each stamp is
   it bit for bit.
 - The seven stage spans are in order inside the call's ``entry`` span; the
   four QP loops lie inside their stages and carry the eager path's rounds.
+- The corridor stage's parts (the DP search's edge costs, K4, the finish)
+  lie in order inside it, and the call's key notes the lattice's work.
 - The accounting of executed graph nodes, the naming of idle gaps and the
-  set-up counts, on made-up inputs and a one-segment program.
+  set-up counts, on made-up inputs and a one-segment program; the
+  summary's corridor parts and QP loops on a made-up report, with and
+  without the corridor's stamps.
+- On the card (marked ``card``; skipped without a CUDA device): the
+  untraced key's graph holds no stamp, node for node the traced key's
+  less its stamps. Run it there with ``python3 -m pytest
+  tests/test_torch_tracing.py -m card --noconftest -o addopts=""``.
 """
 
 import contextlib
@@ -131,6 +139,81 @@ def test_the_summary_reads_the_calls_that_did_not_capture(runs):
     assert got["graph_nodes"] is None       # no graph on the CPU
 
 
+@pytest.mark.parametrize("call", [0, 1])
+def test_the_corridor_parts_lie_in_order_inside_the_corridor_stage(runs,
+                                                                   call):
+    d = runs.rep["calls"][call]["device"]
+    order = ["corridor", *profiling.CORRIDOR_STAMPS, "post_smooth"]
+    times = [d[n] for n in order]
+    assert times == sorted(times)
+    L, K = runs.cfg.dp_layers, runs.cfg.dp_laterals
+    assert runs.rep["nodes"][0]["work"]["lattice"] == dict(
+        edges=B * (L - 1) * K * K, shape=[B, L - 1, K],
+        table_bytes=2 * 4 * B * (L - 1) * K * K)
+
+
+def test_the_summary_splits_the_corridor_stage_into_its_parts(runs):
+    got = profiling.summarize(runs.rep)
+    parts = got["corridor_ms"]
+    assert sum(parts[p] for p in profiling.CORRIDOR_PARTS) == \
+        pytest.approx(got["stage_ms"]["corridor"])
+    assert parts["edges_dp"] == parts["edges"] + parts["dp_forward"]
+    assert got["work"]["lattice"]["shape"] == [B, runs.cfg.dp_layers - 1,
+                                               runs.cfg.dp_laterals]
+
+
+# A made-up call: each stamp in turn, ms after the call's start.
+MADE_UP = [("load", 0.0), ("prep", 0.5), ("smooth", 4.0),
+           ("smooth.start", 4.5), ("smooth.stop", 5.5), ("corridor", 6.0),
+           ("corridor.edges", 7.0), ("corridor.dp_forward", 13.5),
+           ("corridor.finish", 14.25), ("post_smooth", 15.0),
+           ("post.start", 15.5), ("post.stop", 17.5), ("bounds", 18.0),
+           ("path_qp", 18.25), ("qp1.start", 19.0), ("qp1.stop", 23.0),
+           ("qp2.start", 23.5), ("qp2.stop", 28.0), ("finalize", 28.5),
+           ("done", 28.75), ("clone", 29.5)]
+MADE_UP_RUNS = {"smooth": [2, 1], "post": [6, 0], "qp1": [5, 2],
+                "qp2": [6, 1]}
+
+
+def made_up_report(corridor_stamps: bool) -> dict:
+    """Three calls of one key (the first captures it), each 40 ms after
+    the last, with every stamp of :data:`MADE_UP` (the corridor's parts
+    only with ``corridor_stamps``)."""
+    keep = [(n, t) for n, t in MADE_UP
+            if corridor_stamps or n not in profiling.CORRIDOR_STAMPS]
+    calls = [dict(call=c, key=0, first=c == 0, host={},
+                  device={n: int(1e6 * (40 * c + t)) for n, t in keep},
+                  runs=dict(MADE_UP_RUNS)) for c in range(3)]
+    work = dict(lattice=dict(edges=256 * 31 * 135 ** 2,
+                             shape=[256, 31, 135])) if corridor_stamps else {}
+    nodes = dict(stages={}, bodies={}, loop_stage={}, stamps=0, work=work)
+    return dict(calls=calls, nodes=[nodes])
+
+
+def test_the_corridor_parts_of_a_made_up_report_add_up_to_the_stage():
+    got = profiling.summarize(made_up_report(True))
+    assert got["calls"] == 2
+    assert got["corridor_ms"] == pytest.approx(dict(
+        nodes=1.0, edges=6.5, dp_forward=0.75, finish=0.75, edges_dp=7.25))
+    assert sum(got["corridor_ms"][p] for p in profiling.CORRIDOR_PARTS) \
+        == pytest.approx(got["stage_ms"]["corridor"]) == 9.0
+    assert got["work"]["lattice"]["shape"] == [256, 31, 135]
+
+
+@pytest.mark.parametrize("corridor_stamps", [False, True])
+def test_the_qp_loops_are_the_four_with_or_without_the_corridor_stamps(
+        corridor_stamps):
+    got = profiling.summarize(made_up_report(corridor_stamps))
+    assert got["loop_ms"] == pytest.approx(
+        dict(smooth=1.0, post=2.0, qp1=4.0, qp2=4.5))
+    assert got["qp_loop_ms"] == pytest.approx(11.5)
+    assert got["rounds"] == dict(smooth=2, post=6, qp1=5, qp2=6)
+    assert got["stage_ms"] == pytest.approx(dict(
+        prep=3.5, smooth=2.0, corridor=9.0, post_smooth=3.0, bounds=0.25,
+        path_qp=10.25, finalize=0.25))
+    assert (got["corridor_ms"] is None) == (not corridor_stamps)
+
+
 def test_executed_nodes_add_each_body_times_its_runs():
     nodes = dict(stages={"smooth": 10, "path_qp": 20, "bounds": 7},
                  bodies={"smooth.round": 5, "smooth.refactor": 3,
@@ -211,3 +294,44 @@ def test_a_second_call_of_a_key_counts_no_warm_up(monkeypatch):
     counts, _, _ = call("b")
     assert counts["warm_ups"] == 1 and counts["evictions"] == 1
     assert segs.capture_seconds >= 0
+
+
+@pytest.mark.card
+def test_the_untraced_key_holds_no_stamp_on_the_card():
+    """At the fine lattice (the corridor's parts stamped), B 8: the
+    untraced key's top-level graph has the traced key's nodes less its
+    stamps, and its conditional bodies the same nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_pathopt_torch import kernels
+    card = torch.device("cuda", 0)
+    gm, scs, _ = scenarios.build_adversarial(8, device=card)
+    cfg = PlannerConfig(search_lateral_spacing=0.15, dp_laterals=135)
+    counted = {"top": [], "bodies": []}
+    graph_end, body_end = torch.cuda.CUDAGraph.capture_end, \
+        kernels.capture_end
+
+    def top(graph):
+        counted["top"].append(kernels.capture_nodes(
+            torch.cuda.current_stream().cuda_stream))
+        return graph_end(graph)
+
+    def body(stream):
+        counted["bodies"].append(kernels.capture_nodes(stream))
+        return body_end(stream)
+
+    pipeline.COMPILED.clear()
+    torch.cuda.CUDAGraph.capture_end, kernels.capture_end = top, body
+    try:
+        off = pipeline.solve_batch_jit(gm, scs, cfg, device=card)
+        n_bodies = len(counted["bodies"])
+        with profiling.traced():
+            on = pipeline.solve_batch_jit(gm, scs, cfg, device=card)
+    finally:
+        torch.cuda.CUDAGraph.capture_end, kernels.capture_end = \
+            graph_end, body_end
+    _, _, segs = pipeline.last_compiled(traced=True)
+    assert equal(on, off)
+    assert set(profiling.CORRIDOR_STAMPS) <= set(segs.slots)
+    assert counted["top"][0] == counted["top"][1] - segs.stamp_nodes
+    assert counted["bodies"][:n_bodies] == counted["bodies"][n_bodies:]

@@ -162,10 +162,12 @@ def _rough_bounds(feasible, lat):
 
 def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
                     ys: splines.CubicSpline, length, start_x, start_y,
-                    start_heading, config: PlannerConfig) -> DpLattice:
+                    start_heading, config: PlannerConfig,
+                    mark=None) -> DpLattice:
     """Layers, vehicle projection, node sampling, feasibility, rough bounds
     and every state-independent DP edge cost (:148-238). Per-scenario
-    inputs are (B,)."""
+    inputs are (B,). ``mark()``, if given, is called between the nodes
+    (with their feasibility and rough bounds) and the edge costs."""
     cfg = config
     L, K = cfg.dp_layers, cfg.dp_laterals
     lat_range = cfg.search_lateral_range
@@ -188,6 +190,8 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
 
     # --- Rough per-layer bounds over the lateral axis (:210-226) ---
     rough_lb, rough_ub = _rough_bounds(feasible, lat)
+    if mark is not None:
+        mark()
 
     # --- State-independent DP edge costs (:228-238, calculateCostAt) ---
     safe_dist = cfg.dp_safe_distance

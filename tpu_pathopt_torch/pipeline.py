@@ -157,7 +157,10 @@ def stage_smooth(gm: maps.GridMap, prep_out, config: PlannerConfig,
 
 
 def _corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
-              config: PlannerConfig):
+              config: PlannerConfig, trace=None):
+    """The corridor stage. ``trace``, a traced runner (``profiling``),
+    stamps the DP search's parts (:data:`profiling.CORRIDOR_STAMPS`: the
+    edge costs, K4, the finish) and notes the lattice's work."""
     x2, y2, s2, n2, ok_smooth = smooth_out
     xs2, ys2, s2_max = _refit_splines(x2, y2, n2)
     if config.corridor_method == "ASTAR":
@@ -165,9 +168,20 @@ def _corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
             gm, xs2, ys2, s2_max + 3.0, scs.start_x, scs.start_y,
             scs.start_heading, config)
         return xs2, ys2, cor
+    edges, dp, finish = profiling.CORRIDOR_STAMPS
+    stamp = trace.stamp if trace is not None else (lambda name: None)
     lat = corridor.prepare_lattice(gm, xs2, ys2, s2_max + 3.0, scs.start_x,
-                                   scs.start_y, scs.start_heading, config)
+                                   scs.start_y, scs.start_heading, config,
+                                   mark=functools.partial(stamp, edges))
+    if trace is not None:
+        b, lm1, kp, k = lat.dir_all.shape
+        trace.work["lattice"] = dict(
+            edges=b * lm1 * kp * k, shape=[b, lm1, k],
+            table_bytes=sum(t.numel() * t.element_size()
+                            for t in (lat.dir_all, lat.base_all)))
+    stamp(dp)
     costs, parents, alives = corridor.dp_forward_batched(lat, config)
+    stamp(finish)
     cor = corridor.finish_corridor(gm, lat, costs, parents, alives, config)
     return xs2, ys2, cor
 
@@ -179,8 +193,9 @@ def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
     (graphSearchDp, :142-295; its forward pass is K4) or, with
     ``corridor_method="ASTAR"``, the A* lattice search (graphSearch,
     :297-484, plain tensor code)."""
-    return drv("corridor", functools.partial(_corridor, config=config), gm,
-               scs, smooth_out)
+    return drv("corridor", functools.partial(
+        _corridor, config=config, trace=drv if drv.traced else None), gm,
+        scs, smooth_out)
 
 
 def stage_post_smooth(cor, config: PlannerConfig, settings: QPSettings,

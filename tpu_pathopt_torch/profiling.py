@@ -14,8 +14,9 @@ host took to enqueue it.
 
 - device stamps (``csrc/graph_cond.cu``): the traced key's CUDA graph
   holds a stamp node at each stage boundary ``pipeline._pipeline`` marks
-  (:data:`STAGES`, then ``done``, the graph's first and last nodes) and
-  just before and after each QP solve's WHILE node (``<loop>.start``,
+  (:data:`STAGES`, then ``done``, the graph's first and last nodes), at
+  the DP corridor search's parts (:data:`CORRIDOR_STAMPS`) and just
+  before and after each QP solve's WHILE node (``<loop>.start``,
   ``<loop>.stop``; the stop stamp also keeps the call's rounds and
   refactors of the loop); outside the graph one stamp before the input
   copy (``load``) and one after the result clone (``clone``), the call's
@@ -26,7 +27,9 @@ host took to enqueue it.
   ``load``, ``replay`` (the graph launch; on the CPU the program's run)
   and ``clone``; ``gc``, each Python collection, with its generation.
 - the traced key's graph nodes by stage and by conditional body, counted
-  as it is captured.
+  as it is captured, and the work its program notes of its shapes
+  (``Segments.work``: the DP lattice's edges, shape and edge-table
+  bytes).
 
 Whether tracing is on is part of a compiled key, so turning it on captures
 a second graph and the untraced key is never touched; with tracing off a
@@ -55,6 +58,13 @@ logger = logging.getLogger("tpu_pathopt_torch")
 # ends the last.
 STAGES = ("prep", "smooth", "corridor", "post_smooth", "bounds", "path_qp",
           "finalize")
+# The corridor stage's parts (``pipeline._corridor``, the DP search): the
+# lattice's nodes, feasibility and rough bounds from the ``corridor`` stamp,
+# then from each of :data:`CORRIDOR_STAMPS` in turn its edge costs, K4 and
+# the finish, which ends at ``post_smooth``. No ``.start`` in their names:
+# they are not QP loops.
+CORRIDOR_PARTS = ("nodes", "edges", "dp_forward", "finish")
+CORRIDOR_STAMPS = ("corridor.edges", "corridor.dp_forward", "corridor.finish")
 # The host spans of one compiled call, under ``entry``.
 CALL_SPANS = ("entry", "key", "load", "replay", "clone")
 # Brackets (host time, stamp, host time after a synchronise) the clock map
@@ -310,7 +320,8 @@ class Tracer:
           rounds and refactors (``runs``), where its key's ring still
           holds them;
         - ``gc``: [start, end, generation, call] of each collection;
-        - ``nodes``: per key its graph nodes (:func:`executed_nodes`);
+        - ``nodes``: per key its graph nodes (:func:`executed_nodes`) and
+          the work its program noted (``work``);
         - ``clock``: per device the offset, its half-width, the drift
           since tracing began and the timer's resolution;
         - ``counts``: :data:`COUNTS` since tracing began; ``setup``: the
@@ -354,7 +365,8 @@ class Tracer:
             calls=calls, gc=gcs, clock=clock,
             nodes=[dict(stages=dict(s.stage_nodes), bodies=dict(s.body_nodes),
                         loop_stage=dict(s.loop_stage),
-                        stamps=s.stamp_nodes) for s in self.keys],
+                        stamps=s.stamp_nodes, work=dict(s.work))
+                   for s in self.keys],
             counts={k: v - self._counts0.get(k, 0)
                     for k, v in COUNTS.items()},
             setup=[list(r) for r in SETUP])
@@ -400,13 +412,16 @@ def summarize(rep: dict) -> dict:
     """Means over the calls of ``rep`` (a :meth:`Tracer.report`) that did
     not capture their key, each with every stamp: ms of each stage
     (:data:`STAGES`, stamp to the next, ``done`` ending ``finalize``), of
-    each QP loop (``<loop>.start`` to ``<loop>.stop``) and of the four
-    together (``qp_loop_ms``), each loop's rounds, the replay's device
-    span (``prep`` to ``done``) and the device's whole call (``load`` to
-    ``clone``), ms of each host span of the call, the nodes each stage
-    executes and their total less the stamps (``graph_nodes``; None where
-    no graph ran: on the CPU), and us a node by stage. Empty where no such
-    call was made."""
+    the corridor stage's parts (``corridor_ms``, :data:`CORRIDOR_PARTS`
+    and ``edges_dp``, the edge costs and K4 together; None where a call
+    has no DP search), of each QP loop (``<loop>.start`` to
+    ``<loop>.stop``) and of the four together (``qp_loop_ms``), each
+    loop's rounds, the work the last call's key noted (``work``), the
+    replay's device span (``prep`` to ``done``) and the device's whole
+    call (``load`` to ``clone``), ms of each host span of the call, the
+    nodes each stage executes and their total less the stamps
+    (``graph_nodes``; None where no graph ran: on the CPU), and us a node
+    by stage. Empty where no such call was made."""
     calls = [c for c in rep["calls"] if not c["first"]
              and set(STAGES) | {"done", "load", "clone"} <= set(c["device"])]
     if not calls:
@@ -427,7 +442,8 @@ def summarize(rep: dict) -> dict:
     stage_nodes = ({s: _mean(n.get(s, 0) for n in nodes) for s in STAGES}
                    if nodes else {})
     return dict(
-        calls=len(calls), stage_ms=stage_ms, loop_ms=loop_ms,
+        calls=len(calls), stage_ms=stage_ms,
+        corridor_ms=_corridor_ms(calls, ms), loop_ms=loop_ms,
         qp_loop_ms=sum(loop_ms.values()),
         rounds={lp: _mean(c["runs"][lp][0] for c in calls) for lp in loops},
         replay_ms=_mean(ms(c, "prep", "done") for c in calls),
@@ -438,7 +454,21 @@ def summarize(rep: dict) -> dict:
         stage_nodes=stage_nodes,
         graph_nodes=sum(stage_nodes.values()) if nodes else None,
         us_per_node={s: 1e3 * stage_ms[s] / n
-                     for s, n in stage_nodes.items() if n})
+                     for s, n in stage_nodes.items() if n},
+        work=rep["nodes"][calls[-1]["key"]]["work"])
+
+
+def _corridor_ms(calls: list, ms):
+    """Mean ms of each of the corridor stage's parts over ``calls`` and of
+    the edge costs and K4 together (``edges_dp``); None where a call lacks
+    one of their stamps."""
+    bounds = ("corridor",) + CORRIDOR_STAMPS + ("post_smooth",)
+    if not all(set(bounds) <= set(c["device"]) for c in calls):
+        return None
+    got = {part: _mean(ms(c, a, b) for c in calls)
+           for part, a, b in zip(CORRIDOR_PARTS, bounds, bounds[1:])}
+    got["edges_dp"] = got["edges"] + got["dp_forward"]
+    return got
 
 
 def _overlap(a0, a1, gap) -> int:

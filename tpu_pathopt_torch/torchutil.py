@@ -309,6 +309,7 @@ class Segments:
         self.body_nodes: dict = {}  # "<loop>.round" / ".refactor" -> nodes
         self.loop_stage: dict = {}  # loop -> its stage
         self.stamp_nodes = 0        # stamp nodes among the top-level ones
+        self.work: dict = {}        # what the program notes of its shapes
         self._mark_nodes = 0
         if self.device.type == "cuda":
             self.ring = torch.zeros((RING_ROWS, RING_SLOTS),
