@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels and the conditional graph nodes of the
+It builds the six CUDA kernels and the conditional graph nodes of the
 compiled calls (``graph_cond.cu``) from ``tpu_pathopt_torch/csrc`` (nvcc
 for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
@@ -50,7 +50,9 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    and a K4 plan the C launcher does not take raising; then K5 (the
    geometry stage, ``csrc/geometry.cu``) against the plain chain on the
    card at B 256 and B 1, bit for bit, timed beside it
-   (``check_geometry``), and refused past its plan's limits;
+   (``check_geometry``), and refused past its plan's limits; and K6 (the
+   corridor's refit and lattice nodes, ``csrc/lattice.cu``) the same at B
+   256 and B 1 at 35 and 135 laterals (``check_lattice``);
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
@@ -1225,6 +1227,103 @@ def check_geometry(gm, scs, cfg) -> dict:
     return rows
 
 
+# ------------------------------ K6, lattice ----------------------------------
+
+# K6 replaces no Pallas kernel: the DP corridor's refit and lattice nodes
+# (tpu_pathopt/pipeline.py's _refit_splines, tpu_pathopt/corridor.py's
+# _build_lattice_geom, feasibility and _rough_bounds, XLA code). It is
+# checked and timed at the cells' shapes, B 256 and B 1 at 35 and 135
+# laterals, beside the plain chain on the card.
+LATTICE_SHAPES = ((256, {}), (1, {}), (256, FINE_LATTICE), (1, FINE_LATTICE))
+LATTICE_SOURCE = "tpu_pathopt_torch/csrc/lattice.cu"
+LATTICE_REPLACES = ("none: tpu_pathopt/corridor.py (_build_lattice_geom, "
+                    "prepare_lattice's nodes), tpu_pathopt/pipeline.py "
+                    "(_refit_splines)")
+
+
+def lattice_route(gm, scs, cfg) -> tuple:
+    """(x, y, n_valid): the smoothed route the corridor stage refits."""
+    prep = pipeline.stage_prep(scs, cfg)
+    x, y, _, n, _ = pipeline.stage_smooth(gm, prep, cfg, cfg.qp_settings())
+    return x, y, n
+
+
+def lattice_work(gm, B, S, cfg) -> tuple[int, int]:
+    """(bytes, float operations) of K6: the route and start read once, the
+    ESDF's stencil table whole, every output written once; the refit
+    (about 40 a knot), the pre-scan (about 30 a candidate), the Newton
+    steps (about 40 each), the layers (about 60 each) and the nodes
+    (about 30 each: the offset, the bilinear read, the rule, the bounds)."""
+    L, K = cfg.dp_layers, cfg.dp_laterals
+    ins = B * (2 * S * 4 + 8 + 2 * 4) + gm.quad.numel() * 4
+    outs = (B * ((7 * S - 6 + 1) * 4 + (6 * L + 2) * 4 + 17
+                 + L * K * (5 * 4 + 1)) + K * 4)
+    flops = B * (40 * S + 30 * 256 + 40 * cfg.newton_iters + 60 * L
+                 + 30 * L * K)
+    return ins + outs, flops
+
+
+def check_lattice(gm, scs) -> dict:
+    """K6 against its plain chain on the card at LATTICE_SHAPES, every
+    output bit for bit; each timed (``ms``: device time, the stream held
+    busy; ``call_ms``: as the host issues it) beside its bound, its chain
+    (the refit's two Thomas passes and float64 sum over S, the Newton
+    steps) and the plain chain's time. Returns the lines by shape."""
+    rows = {}
+    for b, knobs in LATTICE_SHAPES:
+        cfg = PlannerConfig(**knobs)
+        sub = tree_map(lambda a, b=b: a[:b], scs)
+        x, y, n = lattice_route(gm, sub, cfg)
+
+        def kernel():
+            return corridor.refit_lattice_kernel(gm, x, y, n, sub.start_x,
+                                                 sub.start_y, cfg)
+        got = kernel()
+        want = corridor.refit_lattice_plain(gm, x, y, n, sub.start_x,
+                                            sub.start_y, cfg)
+        torch.cuda.synchronize()
+        unequal = bit_unequal(got, want)
+        ms = cuda_time_ms(kernel)
+        call_ms = cuda_time_ms(kernel, hold=False)
+        plain_ms = cuda_time_ms(
+            lambda: corridor.refit_lattice_plain(gm, x, y, n, sub.start_x,
+                                                 sub.start_y, cfg),
+            reps=SLOW_PLAIN_REPS, warmup=1)
+        S = x.shape[-1]
+        nbytes, flops = lattice_work(gm, b, S, cfg)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        steps = 3 * S + cfg.newton_iters
+        shape = f"B={b},K={cfg.dp_laterals}"
+        line = dict(phase="kernel", name="lattice", shape=shape,
+                    held=True, bit_equal=not unequal, unequal=unequal,
+                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    plain_reps=SLOW_PLAIN_REPS, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    chain_steps=steps, ns_per_chain_step=ms * 1e6 / steps,
+                    plan=list(corridor.lattice_plan(S, cfg.dp_layers,
+                                                    cfg.dp_laterals)))
+        emit(line)
+        if unequal:
+            raise AssertionError(f"lattice [{shape}] differs from the plain "
+                                 f"chain: {unequal}")
+        rows[shape] = line
+    # Past the plan's limits a CUDA input raises before any launch.
+    before = dict(kernels.launches)
+    try:
+        corridor.refit_lattice_kernel(gm, x, y, n, sub.start_x, sub.start_y,
+                                      dataclasses.replace(
+                                          cfg, dp_laterals=301))
+    except ValueError as err:
+        emit(dict(phase="kernel", name="lattice", shape="past_limit",
+                  raised=str(err)))
+    else:
+        raise AssertionError("lattice: a plan past its limits launched")
+    if kernels.launches != before:
+        raise AssertionError("lattice: a refused plan counted a launch")
+    return rows
+
+
 # ------------------------------- main path -----------------------------------
 
 def check_outputs(res, cfg):
@@ -1312,8 +1411,9 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
         idle += [k for k in need if not by_shape.get(k)]
         if idle:
             raise AssertionError(f"{name}: launched no {idle}")
-        if name == "astar" and launches["dp_forward"]:
-            raise AssertionError("astar: the DP kernel K4 was launched")
+        if name == "astar" and (launches["dp_forward"]
+                                or launches["lattice"]):
+            raise AssertionError("astar: the DP kernels K4 or K6 launched")
         out[name] = report
     return out
 
@@ -3028,6 +3128,7 @@ def main() -> int:
     check_k4_clusters(captured)
     check_no_fallback(captured)
     geometry_rows = check_geometry(gm, scs, cfg)
+    lattice_rows = check_lattice(gm, scs)
 
     eager = {}
     report, launches = drive_main_path(gm, scs, cfg, results=eager)
@@ -3080,6 +3181,13 @@ def main() -> int:
                      ms=g["ms"], plain_ms=g["plain_ms"],
                      bound_ms=g["bound_ms"], bound_by=g["bound_by"],
                      library_ms=None, by_shape=geometry_rows))
+    g = lattice_rows[f"B={BATCH},K={cfg.dp_laterals}"]
+    rows.append(dict(name="lattice", route="cuda", source=LATTICE_SOURCE,
+                     replaces=LATTICE_REPLACES,
+                     launches=launches["lattice"], max_abs_err=0.0,
+                     ms=g["ms"], plain_ms=g["plain_ms"],
+                     bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                     library_ms=None, by_shape=lattice_rows))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -170,8 +170,9 @@ def test_a_failed_check_is_dropped_unread(drop):
 @pytest.fixture
 def counted(monkeypatch):
     """The kernels' wrappers count a launch on the CPU too, where they take
-    their plain versions (K5: the geometry stage's plain chain), under the
-    key the card's launch has (c = 1: no cluster at these sizes)."""
+    their plain versions (K5: the geometry stage's plain chain; K6: the
+    corridor's refit and lattice nodes), under the key the card's launch
+    has (c = 1: no cluster at these sizes)."""
     def wrap(mod, attr, key):
         fn = getattr(mod, attr)
 
@@ -188,6 +189,8 @@ def counted(monkeypatch):
     monkeypatch.setattr(corridor, "dp_forward", _count_dp(corridor.dp_forward))
     monkeypatch.setattr(pipeline, "_geometry_plain",
                         _count_geometry(pipeline._geometry_plain))
+    monkeypatch.setattr(corridor, "refit_lattice_plain",
+                        _count_lattice(corridor.refit_lattice_plain))
     kernels.reset_launches()
     yield
     kernels.reset_launches()
@@ -198,6 +201,15 @@ def _count_geometry(fn):
         out = fn(gm, scs, xs2, ys2, cor, l_post, config)
         kernels.count_launch("geometry",
                              f"M={l_post.shape[1]},N={config.n_knots}")
+        return out
+    return counting
+
+
+def _count_lattice(fn):
+    def counting(gm, x, y, n_valid, start_x, start_y, config):
+        out = fn(gm, x, y, n_valid, start_x, start_y, config)
+        kernels.count_launch("lattice", f"L={config.dp_layers},"
+                             f"K={config.dp_laterals}")
         return out
     return counting
 

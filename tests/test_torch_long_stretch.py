@@ -12,7 +12,7 @@ against the JAX package, and the fault the card showed there.
   ``splines.fit_natural`` divides by it. The GPU's cumsum did; so does the
   JAX package's own associative scan on lanes 26, 49 and 63, where its
   stage returns n_valid 0. The port sums the arc length in float64 and
-  rounds once (``pipeline._refit_splines``): finite on every lane, and
+  rounds once (``splines.refit``): finite on every lane, and
   within ``chip_smoke.GEOMETRY_TOL`` of the JAX stage where that is finite.
   ``chip_smoke.check_card_geometry`` runs the same stage on the card.
 - ``solve_batch`` at the stretch config on ``golden.FIXTURE_LANES`` against
@@ -112,7 +112,7 @@ def test_card_inputs_end_on_a_layer_one_ulp_past_the_last(card_stage):
     last, before = ls[rows, n - 1], ls[rows, n - 2]
     np.testing.assert_array_equal(last, np.nextafter(before, np.inf))
     x3, y3 = refit_knots(d)
-    xs3, _, _ = pipeline._refit_splines(x3, y3, d["cor"].n_layers)
+    xs3, _, _ = splines.refit(x3, y3, d["cor"].n_layers)
     seg = torch.hypot(torch.diff(x3, dim=-1), torch.diff(y3, dim=-1))
     keep = torch.arange(seg.shape[-1]) <= d["cor"].n_layers[:, None] - 2
     seg = torch.where(keep, torch.clamp(seg, min=1e-6), 1.0).numpy()

@@ -134,7 +134,7 @@ def test_one_scenario_entry_points_are_batches_of_one(jax_front):
     """tension_smooth is a row of tension_smooth_batched, and
     search_corridor (lattice, K4's plain version on CPU tensors, finish) is
     the DP stage's corridor."""
-    from tpu_pathopt_torch import corridor
+    from tpu_pathopt_torch import corridor, splines
     gm, _, (prep, smooth), port_gm, port_scs = jax_front
     _, xg, yg, _, ang, _, n_seg = prep
     cfg = PlannerConfig(smoothing_method="TENSION")
@@ -148,7 +148,7 @@ def test_one_scenario_entry_points_are_batches_of_one(jax_front):
     xs2, ys2, cor = pipeline.stage_corridor(
         port_gm, port_scs, tuple(t(a) for a in smooth), PlannerConfig())
     got = corridor.search_corridor(
-        port_gm, xs2, ys2, pipeline._refit_splines(*(t(a) for a in (
+        port_gm, xs2, ys2, splines.refit(*(t(a) for a in (
             smooth[0], smooth[1], smooth[3])))[2] + 3.0, port_scs.start_x,
         port_scs.start_y, port_scs.start_heading, PlannerConfig())
     for name, w in fields(cor).items():

@@ -3,7 +3,10 @@
 reference_path_smoother.cpp:142-295).
 
 Sample a lattice of lateral offsets on longitudinal layers along the smoothed
-reference (:func:`prepare_lattice`), run the layer-sequential dynamic program
+reference (:func:`prepare_lattice`; :func:`refit_lattice` refits the smoothed
+route first; on CUDA tensors both run the nodes as kernel K6,
+``csrc/lattice.cu``, beside their plain chain :func:`lattice_nodes_plain`),
+run the layer-sequential dynamic program
 (:func:`dp_forward`, kernel K4 in ``csrc/dp_forward.cu``, beside its plain
 version :func:`dp_forward_plain`), backtrack the cheapest node of the deepest
 reachable layer and widen each backtracked node's corridor by ESDF
@@ -28,6 +31,9 @@ from tpu_pathopt_torch.geometry import (constrain_angle, global_to_local,
                                         normal_offset)
 
 _INF = 1e30
+# How far past the smoothed route's end the corridor reaches, m
+# (tension_smoother.cpp:40-41).
+ROUTE_EXTENSION = 3.0
 _CHECK_S = 0.2
 _CHECK_LIMIT = 6.0
 # Worst-case march span: (6 - (-10)) / 0.2 = 80 steps, +2 for the initial
@@ -101,6 +107,17 @@ class _LatticeGeom:
     dis: torch.Tensor         # (B, L, K) node clearance (-1 outside the map)
 
 
+@dataclasses.dataclass
+class LatticeNodes(_LatticeGeom):
+    """Everything the DP search computes before its edge costs: the lattice
+    geometry, the start node and the DP feasibility rule (K6's outputs)."""
+
+    start_idx: torch.Tensor   # (B,) int64 lateral index of the start node
+    feasible: torch.Tensor    # (B, L, K) bool
+    rough_lb: torch.Tensor    # (B, L, K)
+    rough_ub: torch.Tensor
+
+
 def _build_lattice_geom(gm: maps.GridMap, xs: splines.CubicSpline,
                         ys: splines.CubicSpline, length, start_x, start_y,
                         config: PlannerConfig) -> _LatticeGeom:
@@ -160,22 +177,17 @@ def _rough_bounds(feasible, lat):
             _hold_from_run_start(feasible, lat_grid, reverse=True))
 
 
-def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
-                    ys: splines.CubicSpline, length, start_x, start_y,
-                    start_heading, config: PlannerConfig,
-                    mark=None) -> DpLattice:
-    """Layers, vehicle projection, node sampling, feasibility, rough bounds
-    and every state-independent DP edge cost (:148-238). Per-scenario
-    inputs are (B,). ``mark()``, if given, is called between the nodes
-    (with their feasibility and rough bounds) and the edge costs."""
+def lattice_nodes_plain(gm: maps.GridMap, xs: splines.CubicSpline,
+                        ys: splines.CubicSpline, length, start_x, start_y,
+                        config: PlannerConfig) -> LatticeNodes:
+    """Layers, vehicle projection, node sampling, the start node, the DP
+    feasibility rule and the rough bounds (:148-226) as PyTorch tensor
+    code: K6's plain version. Per-scenario inputs are (B,)."""
     cfg = config
-    L, K = cfg.dp_layers, cfg.dp_laterals
+    K = cfg.dp_laterals
     lat_range = cfg.search_lateral_range
-    dev = length.device
-    f32 = torch.float32
     g = _build_lattice_geom(gm, xs, ys, length, start_x, start_y, cfg)
-    layers_s, n_layers, lat, dis = g.layers_s, g.n_layers, g.lat, g.dis
-    node_x, node_y, ref_h = g.node_x, g.node_y, g.ref_h
+    lat, dis = g.lat, g.dis
     start_idx = ((lat_range + g.vehicle_l) / cfg.search_lateral_spacing
                  ).to(torch.int32).long().clamp(0, K - 1)
 
@@ -184,16 +196,39 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     rk, rr = g.ref_k[..., None], g.ref_r[..., None]
     radius_bad = ((rk < 0) & (lat < rr)) | ((rk > 0) & (lat > rr))
     feasible = ~(radius_bad | (dis < threshold)) & (lat <= lat_range)
-    k_idx = torch.arange(K, device=dev)
+    k_idx = torch.arange(K, device=lat.device)
     # Layer 0: only the start node, forced feasible (:200-205).
     feasible[:, 0] = k_idx == start_idx[:, None]
 
     # --- Rough per-layer bounds over the lateral axis (:210-226) ---
     rough_lb, rough_ub = _rough_bounds(feasible, lat)
-    if mark is not None:
-        mark()
+    return LatticeNodes(**vars(g), start_idx=start_idx, feasible=feasible,
+                        rough_lb=rough_lb, rough_ub=rough_ub)
 
-    # --- State-independent DP edge costs (:228-238, calculateCostAt) ---
+
+def lattice_nodes(gm: maps.GridMap, xs: splines.CubicSpline,
+                  ys: splines.CubicSpline, length, start_x, start_y,
+                  config: PlannerConfig) -> LatticeNodes:
+    """:func:`lattice_nodes_plain` on CPU tensors; on CUDA tensors one
+    launch of K6 (:func:`lattice_kernel`), or a ValueError."""
+    if kernels.kernel_device(length) is None:
+        return lattice_nodes_plain(gm, xs, ys, length, start_x, start_y,
+                                   config)
+    return lattice_kernel(gm, xs, ys, length, start_x, start_y, config)
+
+
+def edge_costs(nodes: LatticeNodes, start_heading,
+               config: PlannerConfig) -> DpLattice:
+    """Every state-independent DP edge cost (:228-238, calculateCostAt)
+    and layer 0's costs, from the lattice's nodes."""
+    cfg = config
+    L, K = cfg.dp_layers, cfg.dp_laterals
+    lat_range = cfg.search_lateral_range
+    layers_s, n_layers, lat, dis = (nodes.layers_s, nodes.n_layers,
+                                    nodes.lat, nodes.dis)
+    node_x, node_y, ref_h = nodes.node_x, nodes.node_y, nodes.ref_h
+    dev = layers_s.device
+    f32 = torch.float32
     safe_dist = cfg.dp_safe_distance
     self_cost = torch.where(dis < safe_dist,
                             (safe_dist - dis) / safe_dist
@@ -201,7 +236,7 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     self_cost = self_cost + torch.abs(lat) / lat_range * cfg.dp_weight_ref_offset
 
     in_mask = torch.arange(1, L, device=dev) < n_layers[:, None]
-    feas_in = feasible[:, 1:] & in_mask[..., None]               # (B, L-1, K)
+    feas_in = nodes.feasible[:, 1:] & in_mask[..., None]         # (B, L-1, K)
     dir_all = torch.atan2(node_y[:, 1:, None, :] - node_y[:, :-1, :, None],
                           node_x[:, 1:, None, :] - node_x[:, :-1, :, None])
     term2 = torch.abs(constrain_angle(dir_all - ref_h[:, 1:, None, None])) \
@@ -211,13 +246,206 @@ def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
     base_all = torch.where(lat_ok & feas_in[:, :, None, :],
                            term2 + self_cost[:, 1:, None, :], _INF)
 
-    cost0 = torch.where(k_idx == start_idx[:, None], 0.0, _INF)
+    k_idx = torch.arange(K, device=dev)
+    cost0 = torch.where(k_idx == nodes.start_idx[:, None], 0.0, _INF)
     dir0 = start_heading.to(f32)[:, None].expand(-1, K).contiguous()
     return DpLattice(layers_s=layers_s, n_layers=n_layers,
-                     vehicle_l=g.vehicle_l, ok=g.ok, ref_x=g.ref_x,
-                     ref_y=g.ref_y, ref_h=ref_h, rough_lb=rough_lb,
-                     rough_ub=rough_ub, dir_all=dir_all, base_all=base_all,
-                     cost0=cost0, dir0=dir0)
+                     vehicle_l=nodes.vehicle_l, ok=nodes.ok,
+                     ref_x=nodes.ref_x, ref_y=nodes.ref_y, ref_h=ref_h,
+                     rough_lb=nodes.rough_lb, rough_ub=nodes.rough_ub,
+                     dir_all=dir_all, base_all=base_all, cost0=cost0,
+                     dir0=dir0)
+
+
+def prepare_lattice(gm: maps.GridMap, xs: splines.CubicSpline,
+                    ys: splines.CubicSpline, length, start_x, start_y,
+                    start_heading, config: PlannerConfig,
+                    mark=None) -> DpLattice:
+    """Layers, vehicle projection, node sampling, feasibility, rough bounds
+    (:func:`lattice_nodes`: K6 on CUDA tensors) and every state-independent
+    DP edge cost (:func:`edge_costs`) (:148-238). Per-scenario inputs are
+    (B,). ``mark()``, if given, is called between the nodes and the edge
+    costs."""
+    nodes = lattice_nodes(gm, xs, ys, length, start_x, start_y, config)
+    if mark is not None:
+        mark()
+    return edge_costs(nodes, start_heading, config)
+
+
+def refit_lattice_plain(gm: maps.GridMap, x, y, n_valid, start_x, start_y,
+                        config: PlannerConfig):
+    """``splines.refit`` of the route x, y (B, S) with ``n_valid`` (B,)
+    points, extended ROUTE_EXTENSION m past the fit's end, and
+    :func:`lattice_nodes_plain` on it: (xs, ys, length, nodes), the plain
+    chain of :func:`refit_lattice_kernel`."""
+    xs, ys, s_max = splines.refit(x, y, n_valid)
+    length = s_max + ROUTE_EXTENSION
+    return xs, ys, length, lattice_nodes_plain(gm, xs, ys, length, start_x,
+                                               start_y, config)
+
+
+def refit_lattice(gm: maps.GridMap, x, y, n_valid, start_x, start_y,
+                  start_heading, config: PlannerConfig, mark=None):
+    """:func:`prepare_lattice` on the smoothed route x, y (B, S) with
+    ``n_valid`` (B,) points, refit and extended ROUTE_EXTENSION m past the
+    fit's end (tension_smoother.cpp:40-41): (xs, ys, lattice). On CUDA
+    tensors the refit and the nodes are one launch of K6
+    (:func:`refit_lattice_kernel`), on CPU tensors their plain chain
+    (:func:`refit_lattice_plain`). ``mark()``, if given, is called between
+    the nodes and the edge costs."""
+    refit = (refit_lattice_plain if kernels.kernel_device(x) is None
+             else refit_lattice_kernel)
+    xs, ys, _, nodes = refit(gm, x, y, n_valid, start_x, start_y, config)
+    if mark is not None:
+        mark()
+    return xs, ys, edge_costs(nodes, start_heading, config)
+
+
+# --------------------------------- K6 ---------------------------------------
+
+# K6's launch plan (csrc/lattice.cu checks the same limits and formula).
+LAT_MAX_SEGMENT_POINTS = 1024
+LAT_MAX_LAYERS = 300
+LAT_MAX_LATERALS = 300
+LAT_MIN_THREADS = 256
+LAT_MAX_THREADS = 512
+
+
+class LatticePlan(NamedTuple):
+    threads: int   # a CTA's, one CTA a scenario
+    smem: int      # dynamic shared memory bytes
+
+
+def lattice_plan(S: int, L: int, K: int) -> LatticePlan:
+    """K6's launch plan for a route of S points, L layers and K laterals:
+    32 ceil(L K / 256) threads within [LAT_MIN_THREADS, LAT_MAX_THREADS]
+    (the projection's 256 grid candidates one a thread; about 8 nodes a
+    thread below the maximum); 4 (16 S + 6 L + L ceil(K / 32) + 64) bytes
+    of shared memory (the route's table and the refit's sweeps, the
+    layers' frame, a feasibility bit a node, reductions; at the limits
+    85,248 bytes, within a block's 227 KB). Raises ValueError past the
+    limits."""
+    for what, v, lo, hi in (("segment points", S, 2, LAT_MAX_SEGMENT_POINTS),
+                            ("layers", L, 2, LAT_MAX_LAYERS),
+                            ("laterals", K, 1, LAT_MAX_LATERALS)):
+        if not lo <= v <= hi:
+            raise ValueError(f"lattice: {v} {what}, the kernel takes "
+                             f"{lo} to {hi}")
+    threads = min(LAT_MAX_THREADS, max(LAT_MIN_THREADS, -(-L * K // 256) * 32))
+    return LatticePlan(threads, 4 * (16 * S + 6 * L + L * -(-K // 32) + 64))
+
+
+def lattice_inputs(gm: maps.GridMap, x, y, n_valid, spline, length,
+                   start_x, start_y, config: PlannerConfig, device) -> tuple:
+    """(plan, inputs): K6's plan (:func:`lattice_plan`) and its input
+    tensors in the order of ``kernels.LatticeArgs``, each made contiguous
+    (a copy where it is not) and checked to be a float32 (int64 for the
+    counts) tensor of its shape on ``device``: the route's points x, y
+    (B, S), ``n_valid`` (B,), ``spline`` the 7 tensors s (B, S), x's and
+    y's a, b, c (B, S - 1), ``length`` (B,), the start position and the
+    map's stencils. Raises ValueError otherwise or past the plan's
+    limits."""
+    B, S = x.shape
+    plan = lattice_plan(S, config.dp_layers, config.dp_laterals)
+    f32, i64 = torch.float32, torch.int64
+    R, C = gm.esdf.shape
+    names = ("s", "xs.a", "xs.b", "xs.c", "ys.a", "ys.b", "ys.c")
+    want = ([("x", x, (B, S), f32), ("y", y, (B, S), f32),
+             ("n_valid", n_valid, (B,), i64)]
+            + [(n, t, (B, S) if n == "s" else (B, S - 1), f32)
+               for n, t in zip(names, spline)]
+            + [("length", length, (B,), f32), ("start_x", start_x, (B,), f32),
+               ("start_y", start_y, (B,), f32),
+               ("gm.quad", gm.quad, ((R - 1) * (C - 1), 4), f32)])
+    inputs = []
+    for name, t, shape, dtype in want:
+        t = t.contiguous()
+        kernels.expect(name, t, shape, dtype, torch.device(device))
+        inputs.append(t)
+    return plan, inputs
+
+
+def _lattice_launch(gm: maps.GridMap, x, y, n_valid, spline, length,
+                    start_x, start_y, config: PlannerConfig, refit: bool):
+    """One launch of K6 on the current stream, on :func:`lattice_inputs`
+    (``spline`` and ``length`` read where ``refit`` is False, else
+    written). Returns the LatticeNodes."""
+    dev = kernels.kernel_device(x)
+    if dev is None:
+        raise ValueError("lattice_kernel: CPU tensors take the plain chain")
+    plan, inputs = lattice_inputs(gm, x, y, n_valid, spline, length, start_x,
+                                  start_y, config, dev)
+    cfg = config
+    B, S = x.shape
+    L, K = cfg.dp_layers, cfg.dp_laterals
+    f32, i64 = torch.float32, torch.int64
+    layers_s = torch.empty((B, L), dtype=f32, device=dev)
+    n_layers = torch.empty((B,), dtype=i64, device=dev)
+    vehicle_l = torch.empty((B,), dtype=f32, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    start_idx = torch.empty((B,), dtype=i64, device=dev)
+    lat = torch.empty((K,), dtype=f32, device=dev)
+    ref = torch.empty((5, B, L), dtype=f32, device=dev)
+    node = torch.empty((5, B, L, K), dtype=f32, device=dev)
+    feasible = torch.empty((B, L, K), dtype=torch.bool, device=dev)
+    hx, hy = gm.half_extent
+    args = kernels.LatticeArgs(
+        *(kernels.ptr(t) for t in inputs + [
+            layers_s, n_layers, vehicle_l, ok, start_idx, lat, ref, node,
+            feasible]),
+        B, S, L, K, gm.n_rows, gm.n_cols, gm.esdf.shape[1],
+        cfg.newton_iters, int(refit), 0.5 * gm.n_rows - 0.5,
+        0.5 * gm.n_cols - 0.5, 1.0 / gm.resolution, hx, hy, ROUTE_EXTENSION,
+        cfg.search_longitudinal_spacing, cfg.search_lateral_spacing,
+        1.0 / cfg.search_lateral_spacing, cfg.search_lateral_range,
+        cfg.car_width / 2.0 + 0.2)
+    kernels.check(kernels.lib().pathopt_lattice(
+        ctypes.byref(args), plan.threads, plan.smem,
+        kernels.stream_ptr(dev)), "lattice")
+    kernels.count_launch("lattice", f"L={L},K={K}")
+    ref_x, ref_y, ref_h, ref_k, ref_r = ref
+    node_x, node_y, dis, rough_lb, rough_ub = node
+    return LatticeNodes(
+        layers_s=layers_s, n_layers=n_layers, vehicle_l=vehicle_l, ok=ok,
+        lat=lat, ref_x=ref_x, ref_y=ref_y, ref_h=ref_h, ref_k=ref_k,
+        ref_r=ref_r, node_x=node_x, node_y=node_y, dis=dis,
+        start_idx=start_idx, feasible=feasible, rough_lb=rough_lb,
+        rough_ub=rough_ub)
+
+
+def lattice_kernel(gm: maps.GridMap, xs: splines.CubicSpline,
+                   ys: splines.CubicSpline, length, start_x, start_y,
+                   config: PlannerConfig) -> LatticeNodes:
+    """:func:`lattice_nodes_plain` as one launch of K6
+    (``csrc/lattice.cu``) on :func:`lattice_plan`'s plan: the same
+    outputs, bit for bit on the card. ``ys`` must share ``xs``'s knots and
+    ``n_valid``, as ``splines.fit_xy`` makes them. CPU tensors, and inputs
+    of another device, dtype or shape, or past the plan's limits, raise
+    ValueError before any launch."""
+    return _lattice_launch(gm, xs.y, ys.y, xs.n_valid, (
+        xs.s, xs.a, xs.b, xs.c, ys.a, ys.b, ys.c), length, start_x, start_y,
+        config, refit=False)
+
+
+def refit_lattice_kernel(gm: maps.GridMap, x, y, n_valid, start_x, start_y,
+                         config: PlannerConfig):
+    """:func:`refit_lattice_plain` as one launch of K6: (xs, ys, length,
+    nodes), bit for bit the plain chain on the card (xs.y and ys.y are x
+    and y, made contiguous). Raises as :func:`lattice_kernel`."""
+    x, y = x.contiguous(), y.contiguous()
+    dev = kernels.kernel_device(x)
+    B, S = x.shape
+    f32 = torch.float32
+    s = torch.empty((B, S), dtype=f32, device=dev)
+    coef = torch.empty((6, B, S - 1), dtype=f32, device=dev)
+    length = torch.empty((B,), dtype=f32, device=dev)
+    nodes = _lattice_launch(gm, x, y, n_valid, (s, *coef), length, start_x,
+                            start_y, config, refit=True)
+    xs = splines.CubicSpline(s=s, y=x, a=coef[0], b=coef[1], c=coef[2],
+                             n_valid=n_valid)
+    ys = splines.CubicSpline(s=s, y=y, a=coef[3], b=coef[4], c=coef[5],
+                             n_valid=n_valid)
+    return xs, ys, length, nodes
 
 
 # --------------------------------- K4 ---------------------------------------

@@ -16,7 +16,7 @@
 //  1. re-projection: the smoothed route (xs2, ys2: S knots, one packed
 //     table in shared memory) at the corridor's M layers, offset by the
 //     post-smoothed l along its normal (one layer a thread);
-//  2. refit (pipeline._refit_splines): the polyline's segments, their arc
+//  2. refit (splines.refit): the polyline's segments, their arc
 //     length summed in float64 and rounded once to float32 (thread 0), the
 //     natural-BC Thomas sweep of x and y (lanes 0 and 1), the cubic
 //     coefficients (one segment a thread): the table xs3, ys3;
@@ -33,26 +33,14 @@
 //     rough_constraints_far_away is set;
 //  6. the blocked truncation: the first zero-width knot (a shared atomicMin).
 //
-// Numerics: bit for bit the plain chain on the card. Every float32
-// operation is one correctly rounded operation in the chain's order (the
-// _rn intrinsics keep nvcc from contracting adds and multiplies into FMAs),
-// cosf, sinf, atan2f, hypotf, powf and fmodf are the precise libdevice
-// functions PyTorch's CUDA kernels call, a division by a Python number d
-// is PyTorch's multiply by 1 / d taken in double and rounded to float32
-// (x / 6.0, x / resolution, the curvature ramp's x / 0.12, max_s / ds: at
-// 0.12 that reciprocal is not float32's 1 / 0.12f, and a division or the
-// float32 reciprocal differs from the chain in most elements), x ** 2 is
-// x * x, x ** 1.5 powf, torch.clamp, minimum and maximum keep NaN, and
-// each argmin keeps the first NaN, else the first least value, as
-// torch.argmin does. A segment
-// search returns the count of knots <= q, as splines._segment_index: a
-// binary search where a scenario's knots are non-decreasing (checked), a
-// linear count where they are not (NaN), a ballot count in warp 0. The arc
-// length's float64 sum is exact, so its order does not matter: every
-// segment is at least 1e-6 (above 2^-20, so a multiple of 2^-43) and the
-// corridor's whole length is below 1024 m (2^10), which 53 bits hold.
-// Past 1024 m the sums round and the arc length may differ from the plain
-// cumsum's by one float32 ulp.
+// Numerics: bit for bit the plain chain on the card, by the rules of
+// splines.cuh (the spline evaluation, the refit, the trim's projection and
+// the ESDF's reads live there, shared with K6), and here too: fmodf is the
+// precise libdevice function, and a division by a Python number d is
+// PyTorch's multiply by 1 / d taken in double and rounded to float32 (the
+// curvature ramp's x / 0.12, max_s / ds: at 0.12 that reciprocal is not
+// float32's 1 / 0.12f, and a division or the float32 reciprocal differs
+// from the chain in most elements).
 //
 // What bounds it on the H100: the bytes are few (a scenario's tables, 9 S +
 // 3 M floats, its 15 N outputs; the ESDF's packed stencils, 1.4 MB on the
@@ -79,6 +67,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "splines.cuh"
 
 namespace pathopt {
 
@@ -182,210 +171,17 @@ constexpr int kFineSteps = 5;
 constexpr float kCoarseLast = static_cast<float>(19 * 0.3);
 constexpr float kMinCorridor = static_cast<float>(0.2);
 constexpr float kProjReach = static_cast<float>(5.0);  // ref.s + 5, ref.s - 5
-// refpath.py's ramp start, splines.py's Hessian guard, the refit's floor.
+// refpath.py's ramp start.
 constexpr float kSmallK = static_cast<float>(0.08);
-constexpr float kHessFloor = static_cast<float>(1e-12);
-constexpr float kSegFloor = static_cast<float>(1e-6);
-// x / 6.0 and x / 2.0 on the card: x times the reciprocal.
-constexpr float kInvSix = static_cast<float>(1.0 / 6.0);
-constexpr float kHalf = static_cast<float>(1.0 / 2.0);
-// splines.project's grid (from 0, 1 m apart) and bounds.py's directional
-// pre-scan (from ref.s - 5, 0.5 m apart).
-constexpr int kTrimGrid = 256;
+// bounds.py's directional pre-scan (from ref.s - 5, 0.5 m apart).
 constexpr int kDirGrid = 21;
 constexpr float kDirGridDs = static_cast<float>(0.5);
-// A spline table's row: s, x, xa, xb, xc, y, ya, yb, yc (a, b, c of the
-// segment starting at s; the last row's are 0 and never read).
-constexpr int kRow = 9;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float f_add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float f_sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float f_mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float f_div(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-
-// torch.minimum / clamp(max=): NaN if either is NaN.
-__device__ __forceinline__ float nanmin(float a, float b) {
-  float m;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
-  return m;
-}
 
 // geometry.constrain_angle: torch.remainder(a + pi, 2 pi) - pi.
 __device__ __forceinline__ float constrain_angle(float a) {
   float r = fmodf(f_add(a, kPi), kTwoPi);
   if (r != 0.f && r < 0.f) r = f_add(r, kTwoPi);
   return f_sub(r, kPi);
-}
-
-// splines._guard.
-__device__ __forceinline__ float guard(float h) {
-  return fabsf(h) < kHessFloor ? kHessFloor : h;
-}
-
-// torch.argmin's order: a NaN before any number, else the smaller value;
-// ties to the lower index. A total order, so any reduction order gives the
-// same winner.
-__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
-  if (a != a) return b != b ? ia < ib : true;
-  if (b != b) return false;
-  return a == b ? ia < ib : a < b;
-}
-
-// torchutil.take's index: i mod n with Python's sign, at most n - 1.
-__device__ __forceinline__ int take_index(long long i, int n) {
-  long long r = i % n;
-  if (r < 0) r += n;
-  return static_cast<int>(r < n - 1 ? r : n - 1);
-}
-
-// What splines.evaluate reads of a spline beside the segment's row.
-struct Ends {
-  float s_lo, s_hi;
-  float x_lo, x_lo_slope, x_hi, x_hi_slope;
-  float y_lo, y_lo_slope, y_hi, y_hi_slope;
-  long long seg_max;  // n_valid - 2, the last segment a query may take
-  int knots;
-  int sorted;         // knots non-decreasing: a binary search counts them
-};
-
-struct Point {
-  float x, y, dx, dy, ddx, ddy;
-};
-
-// splines._end_slope of the curve whose values sit in column `col`.
-__device__ float end_slope(const float* tab, int knots, long long nv,
-                           int col) {
-  const float h = f_sub(tab[kRow * take_index(nv - 1, knots)],
-                        tab[kRow * take_index(nv - 2, knots)]);
-  const float* r = tab + kRow * take_index(nv - 2, knots - 1) + col;
-  return f_add(f_add(r[3], f_mul(f_mul(2.f, r[2]), h)),
-               f_mul(f_mul(3.f, r[1]), f_mul(h, h)));
-}
-
-__device__ Ends make_ends(const float* tab, int knots, long long nv,
-                          int sorted) {
-  const int hi = take_index(nv - 1, knots);
-  Ends e;
-  e.s_lo = tab[0];
-  e.s_hi = tab[kRow * hi];
-  e.x_lo = tab[1];
-  e.x_lo_slope = tab[4];
-  e.x_hi = tab[kRow * hi + 1];
-  e.x_hi_slope = end_slope(tab, knots, nv, 1);
-  e.y_lo = tab[5];
-  e.y_lo_slope = tab[8];
-  e.y_hi = tab[kRow * hi + 5];
-  e.y_hi_slope = end_slope(tab, knots, nv, 5);
-  e.seg_max = nv - 2;
-  e.knots = knots;
-  e.sorted = sorted;
-  return e;
-}
-
-// One curve of splines.evaluate (orders 0, 1, 2) on the segment row r
-// (value, a, b, c), with the linear extrapolation outside [s_lo, s_hi].
-__device__ __forceinline__ void cubic(const float* r, float t, bool below,
-                                      bool above, float dq_lo, float dq_hi,
-                                      float lo, float lo_slope, float hi,
-                                      float hi_slope, float& v, float& d1,
-                                      float& d2) {
-  const float a = r[1], b = r[2], c = r[3];
-  v = f_add(r[0], f_mul(t, f_add(c, f_mul(t, f_add(b, f_mul(t, a))))));
-  const float b2 = f_mul(2.f, b);
-  d1 = f_add(c, f_mul(t, f_add(b2, f_mul(f_mul(3.f, a), t))));
-  d2 = f_add(b2, f_mul(f_mul(6.f, a), t));
-  if (below) {
-    v = f_add(lo, f_mul(lo_slope, dq_lo));
-    d1 = lo_slope;
-    d2 = 0.f;
-  } else if (above) {
-    v = f_add(hi, f_mul(hi_slope, dq_hi));
-    d1 = hi_slope;
-    d2 = 0.f;
-  }
-}
-
-// Both curves at q, given the count of knots <= q.
-__device__ Point eval_count(const float* tab, const Ends& e, float q,
-                            int count) {
-  long long i = count - 1;
-  i = i < 0 ? 0 : i;
-  i = i < e.seg_max ? i : e.seg_max;
-  i = i < 0 ? 0 : i;
-  const float* r = tab + kRow * i;
-  const float t = f_sub(q, r[0]);
-  const bool below = q < e.s_lo, above = q > e.s_hi;
-  const float dq_lo = f_sub(q, e.s_lo), dq_hi = f_sub(q, e.s_hi);
-  Point p;
-  cubic(r + 1, t, below, above, dq_lo, dq_hi, e.x_lo, e.x_lo_slope, e.x_hi,
-        e.x_hi_slope, p.x, p.dx, p.ddx);
-  cubic(r + 5, t, below, above, dq_lo, dq_hi, e.y_lo, e.y_lo_slope, e.y_hi,
-        e.y_hi_slope, p.y, p.dy, p.ddy);
-  return p;
-}
-
-// One thread's evaluation.
-__device__ Point eval_thread(const float* tab, const Ends& e, float q) {
-  int n = 0;
-  if (e.sorted) {
-    int hi = e.knots;
-    while (n < hi) {
-      const int mid = (n + hi) >> 1;
-      if (tab[kRow * mid] <= q)
-        n = mid + 1;
-      else
-        hi = mid;
-    }
-  } else {
-    for (int k = 0; k < e.knots; ++k) n += tab[kRow * k] <= q;
-  }
-  return eval_count(tab, e, q, n);
-}
-
-// The same, by a whole warp at one q (every lane gets the result).
-__device__ Point eval_warp(const float* tab, const Ends& e, float q,
-                           int lane) {
-  int n = 0;
-  for (int base = 0; base < e.knots; base += 32) {
-    const int k = base + lane;
-    n += __popc(__ballot_sync(kFull, k < e.knots && tab[kRow * k] <= q));
-  }
-  return eval_count(tab, e, q, n);
-}
-
-// splines.curvature from a point's derivatives.
-__device__ __forceinline__ float curvature(const Point& p) {
-  return f_div(f_sub(f_mul(p.dx, p.ddy), f_mul(p.dy, p.ddx)),
-               powf(f_add(f_mul(p.dx, p.dx), f_mul(p.dy, p.dy)), 1.5f));
-}
-
-// maps.obstacle_distance: the ESDF's bilinear value, 0 outside the map.
-__device__ __forceinline__ float esdf(const GeoArgs& a, float x, float y) {
-  const float fi = f_sub(a.row_c, f_mul(x, a.inv_res));
-  const float fj = f_sub(a.col_c, f_mul(y, a.inv_res));
-  long long i0 = static_cast<long long>(floorf(fi));
-  long long j0 = static_cast<long long>(floorf(fj));
-  i0 = i0 < 0 ? 0 : (i0 > a.n_rows - 2 ? a.n_rows - 2 : i0);
-  j0 = j0 < 0 ? 0 : (j0 > a.n_cols - 2 ? a.n_cols - 2 : j0);
-  const float ti = clip(f_sub(fi, static_cast<float>(i0)), 0.f, 1.f);
-  const float tj = clip(f_sub(fj, static_cast<float>(j0)), 0.f, 1.f);
-  const float4 v = __ldg(reinterpret_cast<const float4*>(a.quad) +
-                         (i0 * (a.c_pad - 1) + j0));
-  const float ui = f_sub(1.f, ti), uj = f_sub(1.f, tj);
-  const float interp =
-      f_add(f_add(f_add(f_mul(v.x, f_mul(ui, uj)), f_mul(v.y, f_mul(ui, tj))),
-                  f_mul(v.z, f_mul(ti, uj))),
-            f_mul(v.w, f_mul(ti, tj)));
-  return (fabsf(x) <= a.half_x && fabsf(y) <= a.half_y) ? interp : 0.f;
 }
 
 // One side of bounds.clearance_strict: the march's drivable extent along
@@ -461,42 +257,6 @@ __device__ float ray_residual(const float* tab, const Ends& e, float tx,
   return r != r ? INFINITY : r;
 }
 
-// A first argmin over the CTA of each thread's (value, index); every
-// thread gets the index.
-__device__ int block_argmin(float v, int i, float* red_v, int* red_i,
-                            int* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_down_sync(kFull, v, o);
-    const int i2 = __shfl_down_sync(kFull, i, o);
-    if (before(v2, i2, v, i)) {
-      v = v2;
-      i = i2;
-    }
-  }
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int warps = (blockDim.x + 31) >> 5;
-    v = lane < warps ? red_v[lane] : INFINITY;
-    i = lane < warps ? red_i[lane] : INT_MAX;
-    for (int o = 16; o > 0; o >>= 1) {
-      const float v2 = __shfl_down_sync(kFull, v, o);
-      const int i2 = __shfl_down_sync(kFull, i, o);
-      if (before(v2, i2, v, i)) {
-        v = v2;
-        i = i2;
-      }
-    }
-    if (lane == 0) *out = i;
-  }
-  __syncthreads();
-  return *out;
-}
-
 // A scenario's scalars.
 struct Lane {
   Ends e2, e3;
@@ -516,14 +276,8 @@ __global__ void __launch_bounds__(kGeoMaxThreads)
   const int S = a.S, M = a.M, N = a.N;
   float* tab2 = smem;                  // S rows: xs2, ys2
   float* tab3 = tab2 + kRow * S;       // M rows: xs3, ys3
-  float* h3 = tab3 + kRow * M;         // segments, then knot intervals
-  float* slx = h3 + M;                 // slopes of x and y
-  float* sly = slx + M;
-  float* cpx = sly + M;                // Thomas: c', d' (then sigma)
-  float* dpx = cpx + M;
-  float* cpy = dpx + M;
-  float* dpy = cpy + M;
-  float* ks = dpy + M;                 // the knots' s, x, y, heading
+  float* h3 = tab3 + kRow * M;         // the refit's sweeps, 7 M
+  float* ks = h3 + 7 * M;              // the knots' s, x, y, heading
   float* kx = ks + N;
   float* ky = kx + N;
   float* kh = ky + N;
@@ -574,110 +328,15 @@ __global__ void __launch_bounds__(kGeoMaxThreads)
 
   // 2. Refit: arc length, Thomas sweeps, coefficients.
   const long long nv3 = a.n_layers[b];
-  for (int j = tid; j < M - 1; j += nt) {
-    const float* r = tab3 + kRow * j;
-    const float seg =
-        hypotf(f_sub(r[kRow + 1], r[1]), f_sub(r[kRow + 5], r[5]));
-    h3[j] = j <= nv3 - 2 ? nanmax(seg, kSegFloor) : 1.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    double sum = 0.0;
-    tab3[0] = 0.f;
-    for (int j = 0; j < M - 1; ++j) {
-      sum = __dadd_rn(sum, static_cast<double>(h3[j]));
-      tab3[kRow * (j + 1)] = __double2float_rn(sum);
-    }
-  }
-  __syncthreads();
-  int unsorted3 = 0;
-  for (int k = tid; k < M - 1; k += nt) {
-    const float* r = tab3 + kRow * k;
-    const float h = f_sub(r[kRow], r[0]);
-    h3[k] = h;
-    slx[k] = f_div(f_sub(r[kRow + 1], r[1]), h);
-    sly[k] = f_div(f_sub(r[kRow + 5], r[5]), h);
-    unsorted3 |= !(r[0] <= r[kRow]);
-  }
-  unsorted3 = __syncthreads_or(unsorted3);
-  if (tid < 2) {
-    // splines.fit_natural's system and splines._thomas: x on lane 0, y on
-    // lane 1 (the same branches, so the two run together).
-    const float* sl = tid == 0 ? slx : sly;
-    float* cp = tid == 0 ? cpx : cpy;
-    float* dp = tid == 0 ? dpx : dpy;
-    float c_prev = 0.f, d_prev = 0.f;
-    for (int i = 0; i < M; ++i) {
-      const bool interior = i >= 1 && i <= nv3 - 2;
-      const int im1 = i == 0 ? 0 : i - 1;
-      const int ii = i < M - 1 ? i : M - 2;
-      const float diag = interior ? f_mul(2.f, f_add(h3[im1], h3[ii])) : 1.f;
-      const float lower = interior ? h3[im1] : 0.f;
-      const float upper = interior ? h3[ii] : 0.f;
-      const float rhs = interior ? f_mul(6.f, f_sub(sl[ii], sl[im1])) : 0.f;
-      if (i == 0) {
-        c_prev = f_div(upper, diag);
-        d_prev = f_div(rhs, diag);
-      } else {
-        const float t = f_sub(diag, f_mul(lower, c_prev));
-        c_prev = f_div(upper, t);
-        d_prev = f_div(f_sub(rhs, f_mul(lower, d_prev)), t);
-      }
-      cp[i] = c_prev;
-      dp[i] = d_prev;
-    }
-    // Back substitution; sigma (0 off the interior) replaces d'.
-    float x = d_prev;
-    dp[M - 1] = (M - 1 <= nv3 - 2) ? x : 0.f;
-    for (int i = M - 2; i >= 0; --i) {
-      x = f_sub(dp[i], f_mul(cp[i], x));
-      dp[i] = (i >= 1 && i <= nv3 - 2) ? x : 0.f;
-    }
-  }
-  __syncthreads();
-  for (int k = tid; k < M; k += nt) {
-    float* r = tab3 + kRow * k;
-    if (k == M - 1) {
-      r[2] = r[3] = r[4] = r[6] = r[7] = r[8] = 0.f;
-      continue;
-    }
-    const float h = h3[k];
-    const float six_h = f_mul(6.f, h);
-#pragma unroll
-    for (int curve = 0; curve < 2; ++curve) {
-      const float* sig = curve == 0 ? dpx : dpy;
-      const float* sl = curve == 0 ? slx : sly;
-      const float s0 = sig[k], s1 = sig[k + 1];
-      float* c = r + 2 + 4 * curve;
-      c[0] = f_div(f_sub(s1, s0), six_h);
-      c[1] = f_mul(s0, kHalf);
-      c[2] = f_sub(sl[k], f_mul(f_mul(h, f_add(f_mul(2.f, s0), s1)), kInvSix));
-    }
-  }
-  __syncthreads();
-  if (tid == 0) sh.e3 = make_ends(tab3, M, nv3, !unsorted3);
+  const bool sorted3 = refit(tab3, M, nv3, h3);
+  if (tid == 0) sh.e3 = make_ends(tab3, M, nv3, sorted3);
   __syncthreads();
   const Ends e3 = sh.e3;
   const float length3 = e3.s_hi;
 
   // 3. The target's grid pre-scan (splines.project), a first argmin.
   const float tx = a.target_x[b], ty = a.target_y[b];
-  {
-    float best_v = INFINITY;
-    int best_i = INT_MAX;
-    for (int k = tid; k < kTrimGrid; k += nt) {
-      const float c = static_cast<float>(k);
-      const Point p = eval_thread(tab3, e3, c);
-      const float dx = f_sub(p.x, tx), dy = f_sub(p.y, ty);
-      const float d2 =
-          c <= length3 ? f_add(f_mul(dx, dx), f_mul(dy, dy)) : INFINITY;
-      if (before(d2, k, best_v, best_i)) {
-        best_v = d2;
-        best_i = k;
-      }
-    }
-    block_argmin(best_v, best_i, red_v, red_i, &sh.best);
-  }
+  grid_prescan(tab3, e3, tx, ty, length3, red_v, red_i, &sh.best);
 
   // Init state, trim, and the resample recurrence: warp 0.
   if (warp == 0) {
@@ -695,18 +354,11 @@ __global__ void __launch_bounds__(kGeoMaxThreads)
     const float local_tx = f_add(f_mul(f_sub(tx, pe.x), cosf(eh)),
                                  f_mul(f_sub(ty, pe.y), sinf(eh)));
     // splines.project_newton from the grid's winner.
-    float cur = nanmin(static_cast<float>(sh.best), length3);
-    for (int it = 0; it < a.newton_iters; ++it) {
-      const Point p = eval_warp(tab3, e3, cur, lane);
-      const float ex = f_sub(p.x, tx), ey = f_sub(p.y, ty);
-      const float jcb = f_add(f_mul(ex, p.dx), f_mul(ey, p.dy));
-      const float hes =
-          f_add(f_add(f_add(f_mul(p.dx, p.dx), f_mul(ex, p.ddx)),
-                      f_mul(p.dy, p.dy)),
-                f_mul(ey, p.ddy));
-      cur = f_sub(cur, f_div(jcb, guard(hes)));
-    }
-    const float max_s = local_tx > 0.f ? length3 : nanmin(cur, length3);
+    const float max_s =
+        local_tx > 0.f ? length3
+                       : newton_warp(tab3, e3, tx, ty, length3,
+                                     static_cast<float>(sh.best),
+                                     a.newton_iters, lane);
 
     if (a.dynamic) {
       float s_cur = 0.f;

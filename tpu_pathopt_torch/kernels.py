@@ -14,7 +14,8 @@ and to ``shape_launches`` under the kernel and its block shape (for K2 and
 K3 also the knots and the launch plan's cluster size, e.g.
 ``fused_admm_round[nb=6,N=512,c=2]``; for K4 the laterals and the cluster
 size, ``dp_forward[K=135,c=1]``; for K5 the corridor's layers and
-the knots, ``geometry[M=32,N=128]``), so a run can show that the main path
+the knots, ``geometry[M=32,N=128]``; for K6 the layers and the laterals,
+``lattice[L=32,K=35]``), so a run can show that the main path
 went through each kernel at each of its shapes and plans. A captured CUDA
 graph launches its kernels at every replay without the wrappers running,
 and how often its loop bodies run is known only on the device: a compiled
@@ -25,6 +26,10 @@ refactors times the launches each body's capture recorded.
 ``geometry.cu`` (K5) is no TPU kernel's port either: it runs the geometry
 stage, which the JAX package leaves to XLA, as one launch
 (``pipeline.geometry_kernel``, its arguments :class:`GeometryArgs`).
+Nor is ``lattice.cu`` (K6): the DP corridor's refit and lattice nodes, also
+XLA code in the JAX package, as one launch (``corridor.lattice_kernel`` and
+``refit_lattice_kernel``, its arguments :class:`LatticeArgs`). The two share
+their spline, projection and ESDF device functions (``splines.cuh``).
 ``graph_cond.cu`` is no TPU kernel's port: it adds the conditional graph
 nodes of a compiled call's device-side loops (``torchutil.Segments``), and
 the stamps and node counts of a traced compiled call (``profiling``).
@@ -48,14 +53,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_factor.cu", "fused_admm_round.cu",
            "fused_structured_round.cu", "dp_forward.cu", "geometry.cu",
-           "graph_cond.cu")
-HEADERS = ("common.cuh", "btri_sweep.cuh")
+           "lattice.cu", "graph_cond.cu")
+HEADERS = ("common.cuh", "btri_sweep.cuh", "splines.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel name -> launches since the last reset.
 launches = {"fused_factor": 0, "fused_admm_round": 0,
-            "fused_structured_round": 0, "dp_forward": 0, "geometry": 0}
+            "fused_structured_round": 0, "dp_forward": 0, "geometry": 0,
+            "lattice": 0}
 # "name[shape]" (e.g. "fused_factor[nb=9]") -> launches since the last reset.
 shape_launches: dict = {}
 # Filled by build(): the commands, seconds, library path and nvcc output.
@@ -235,6 +241,7 @@ def _load():
     L.pathopt_dp_forward.argtypes = [p] * 8 + [i] * 9 + [f, p]
     L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
     L.pathopt_geometry.argtypes = [ctypes.POINTER(GeometryArgs), i, i, p]
+    L.pathopt_lattice.argtypes = [ctypes.POINTER(LatticeArgs), i, i, p]
     u64 = ctypes.c_ulonglong
     L.pathopt_graph_versions.argtypes = [p, p]
     L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
@@ -248,7 +255,7 @@ def _load():
     L.pathopt_graph_nodes.argtypes = [p, p]
     for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                L.pathopt_fused_structured_round, L.pathopt_dp_forward,
-               L.pathopt_dp_resident, L.pathopt_geometry,
+               L.pathopt_dp_resident, L.pathopt_geometry, L.pathopt_lattice,
                L.pathopt_graph_versions, L.pathopt_cond_handle,
                L.pathopt_cond_node, L.pathopt_capture_to,
                L.pathopt_capture_end, L.pathopt_set_condition,
@@ -279,6 +286,25 @@ class GeometryArgs(ctypes.Structure):
             "ds_shrink", "inv_k_span", "inv_ds", "full_s", "front_len",
             "rear_len", "diff_radius", "safety_margin", "epsilon",
             "init_limit")])
+
+
+class LatticeArgs(ctypes.Structure):
+    """``csrc/lattice.cu``'s ``LatArgs``, field for field: K6's device
+    pointers, then its shapes and switch, then the float32 roundings of
+    the chain's Python numbers."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "x", "y", "n_valid", "s", "xa", "xb", "xc", "ya", "yb", "yc",
+            "length", "start_x", "start_y", "quad", "layers_s", "n_layers",
+            "vehicle_l", "ok", "start_idx", "lat", "ref", "node",
+            "feasible")]
+        + [(name, ctypes.c_int) for name in (
+            "batch", "S", "L", "K", "n_rows", "n_cols", "c_pad",
+            "newton_iters", "refit")]
+        + [(name, ctypes.c_float) for name in (
+            "row_c", "col_c", "inv_res", "half_x", "half_y", "extend",
+            "long_ds", "lat_ds", "inv_lat_ds", "lat_range", "threshold")])
 
 
 def check(err: int, name: str):

@@ -99,28 +99,6 @@ class PathResult:
         return torch.arange(n, device=self.x.device) < self.n_valid[..., None]
 
 
-def _refit_splines(x, y, n_valid, step=1.0):
-    """Cumulative-arc-length natural-spline refit of masked polylines.
-
-    The arc length is summed in float64 and rounded once to float32, on
-    every device (the CPU's float32 cumsum sums in float64 too). The
-    corridor's last layer can stand one float32 ulp past the one before it
-    (the 1e-6 of ``corridor._build_lattice_geom``'s layer count is below
-    float32's resolution at the long route's 82 layers, in the JAX package
-    as here), and a float32 scan in another order (the GPU's, or the JAX
-    package's associative scan) can round that one-ulp segment to a zero
-    knot interval, which ``splines.fit_natural`` divides by: the whole
-    lane's spline becomes NaN."""
-    M = x.shape[-1]
-    seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
-    keep = torch.arange(M - 1, device=x.device) <= n_valid[:, None] - 2
-    seg = torch.where(keep, torch.clamp(seg, min=1e-6), step)
-    s = torch.cumsum(seg, -1, dtype=torch.float64).to(seg.dtype)
-    s = torch.cat([torch.zeros_like(seg[:, :1]), s], -1)
-    xs, ys = splines.fit_xy(s, x, y, n_valid)
-    return xs, ys, take(s, n_valid - 1)
-
-
 # ------------------------------ pipeline stages ------------------------------
 #
 # Each stage runs its straight-line code as segments of ``drv`` (a
@@ -162,17 +140,17 @@ def _corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
     stamps the DP search's parts (:data:`profiling.CORRIDOR_STAMPS`: the
     edge costs, K4, the finish) and notes the lattice's work."""
     x2, y2, s2, n2, ok_smooth = smooth_out
-    xs2, ys2, s2_max = _refit_splines(x2, y2, n2)
     if config.corridor_method == "ASTAR":
+        xs2, ys2, s2_max = splines.refit(x2, y2, n2)
         cor = corridor.search_corridor_astar(
-            gm, xs2, ys2, s2_max + 3.0, scs.start_x, scs.start_y,
-            scs.start_heading, config)
+            gm, xs2, ys2, s2_max + corridor.ROUTE_EXTENSION, scs.start_x,
+            scs.start_y, scs.start_heading, config)
         return xs2, ys2, cor
     edges, dp, finish = profiling.CORRIDOR_STAMPS
     stamp = trace.stamp if trace is not None else (lambda name: None)
-    lat = corridor.prepare_lattice(gm, xs2, ys2, s2_max + 3.0, scs.start_x,
-                                   scs.start_y, scs.start_heading, config,
-                                   mark=functools.partial(stamp, edges))
+    xs2, ys2, lat = corridor.refit_lattice(
+        gm, x2, y2, n2, scs.start_x, scs.start_y, scs.start_heading, config,
+        mark=functools.partial(stamp, edges))
     if trace is not None:
         b, lm1, kp, k = lat.dir_all.shape
         trace.work["lattice"] = dict(
@@ -190,9 +168,9 @@ def stage_corridor(gm: maps.GridMap, scs: Scenario, smooth_out,
                    config: PlannerConfig, drv=EAGER):
     """Smoothed-spline refit + corridor search, on a spline extended 3 m
     past the fit (tension_smoother.cpp:40-41): the DP search
-    (graphSearchDp, :142-295; its forward pass is K4) or, with
-    ``corridor_method="ASTAR"``, the A* lattice search (graphSearch,
-    :297-484, plain tensor code)."""
+    (graphSearchDp, :142-295; on the card the refit and its lattice are
+    K6, its forward pass K4) or, with ``corridor_method="ASTAR"``, the A*
+    lattice search (graphSearch, :297-484, plain tensor code)."""
     return drv("corridor", functools.partial(
         _corridor, config=config, trace=drv if drv.traced else None), gm,
         scs, smooth_out)
@@ -224,7 +202,7 @@ def _geometry_plain(gm: maps.GridMap, scs: Scenario, xs2, ys2, cor, l_post,
     x3, y3 = normal_offset(splines.evaluate(xs2, cor.layers_s),
                            splines.evaluate(ys2, cor.layers_s), ref_dir,
                            l_post)
-    xs3, ys3, length3 = _refit_splines(x3, y3, cor.n_layers)
+    xs3, ys3, length3 = splines.refit(x3, y3, cor.n_layers)
 
     # Init state (processInitState, path_optimizer.cpp:73-85).
     zero = torch.zeros_like(length3)

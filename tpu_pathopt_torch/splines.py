@@ -101,6 +101,30 @@ def fit_xy(s, x, y, n_valid):
                              c=sp.c[j], n_valid=sp.n_valid[j]) for j in (0, 1))
 
 
+def refit(x, y, n_valid, step: float = 1.0):
+    """Cumulative-arc-length natural-spline refit of masked polylines x, y
+    (B, M) with ``n_valid`` (B,) points each: (xs, ys, the arc length's
+    end (B,)). Segments past the valid points are ``step`` long.
+
+    The arc length is summed in float64 and rounded once to float32, on
+    every device (the CPU's float32 cumsum sums in float64 too). The
+    corridor's last layer can stand one float32 ulp past the one before it
+    (the 1e-6 of ``corridor._build_lattice_geom``'s layer count is below
+    float32's resolution at the long route's 82 layers, in the JAX package
+    as here), and a float32 scan in another order (the GPU's, or the JAX
+    package's associative scan) can round that one-ulp segment to a zero
+    knot interval, which :func:`fit_natural` divides by: the whole lane's
+    spline becomes NaN."""
+    M = x.shape[-1]
+    seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
+    keep = torch.arange(M - 1, device=x.device) <= n_valid[:, None] - 2
+    seg = torch.where(keep, torch.clamp(seg, min=1e-6), step)
+    s = torch.cumsum(seg, -1, dtype=torch.float64).to(seg.dtype)
+    s = torch.cat([torch.zeros_like(seg[:, :1]), s], -1)
+    xs, ys = fit_xy(s, x, y, n_valid)
+    return xs, ys, take(s, n_valid - 1)
+
+
 def _flat_queries(sp: CubicSpline, q):
     """(rows, q2, shape): spline batch flattened to rows, queries to
     (rows, M), and the query shape to restore."""
