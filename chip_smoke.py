@@ -62,7 +62,8 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 4. ``variants``: the same batch under TENSION + DP, TENSION2 + A*, the
    rough far-away rows and the directional prescan fallback, counted the
    same way (K1 at nb 9 and K3 at (9, 9) must launch under TENSION, K4
-   must not under A*, K2 must launch under its rough key under rough),
+   must not under A*, under rough K2 must launch and the pass-1 path
+   QP's collision rows must differ by knot),
    timed by stage over 3 runs, with the number of succeeded paths that
    are collision free (``collision.py``);
 5. ``replan``: ``replan.replan_stream`` (each cycle the compiled
@@ -235,7 +236,7 @@ VARIANTS = {"tension": dict(smoothing_method="TENSION"),
 # Launch keys each variant must show (kernels.shape_launches).
 VARIANT_KEYS = {"tension": ["fused_factor[nb=9]",
                             "fused_structured_round[nb=9,r=9,N=22,c=1]"],
-                "rough": ["fused_admm_round[nb=6,rough,N=128,c=1]"]}
+                "rough": ["fused_admm_round[nb=6,N=128,c=1]"]}
 # The fine DP lattice (K4 at 135 laterals), on the adversarial batch. The
 # long route's configurations are in LONG_RUNS.
 FINE_LATTICE = dict(search_lateral_spacing=0.15, dp_laterals=135)
@@ -1393,6 +1394,8 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
             walls.append(w)
             stages.append(s)
         ok_fraction = float(res.ok.float().mean())
+        rows_vary = rows_vary_by_knot(gm, scs, vcfg) if name == "rough" \
+            else None
         report = dict(
             phase="variants", variant=name, config=kw, batch=len(res.ok),
             seconds_runs=walls, solves_per_s=len(res.ok)
@@ -1401,10 +1404,14 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
                       for k in stage_ms},
             rounds=stats, mean_qp_iters=float(res.qp_iters.float().mean()),
             launches=launches, shape_launches=by_shape,
-            collision=collision_report(gm, res, vcfg, device))
+            collision=collision_report(gm, res, vcfg, device),
+            rows_vary_by_knot=rows_vary)
         emit(report)
         if ok_fraction != 1.0:
             raise AssertionError(f"{name}: ok_fraction {ok_fraction} != 1.0")
+        if rows_vary is False:
+            raise AssertionError(f"{name}: the pass-1 path QP's collision "
+                                 "rows are the same at every knot")
         need = VARIANT_KEYS.get(name, [])
         idle = [k for k in ("fused_factor", "fused_admm_round",
                             "fused_structured_round") if not launches[k]]
@@ -1416,6 +1423,16 @@ def drive_variants(gm, scs, cfg, device="cuda", results=None) -> dict:
             raise AssertionError("astar: the DP kernels K4 or K6 launched")
         out[name] = report
     return out
+
+
+def rows_vary_by_knot(gm, scs, cfg) -> bool:
+    """Whether the collision rows K2 takes differ by knot in the pass-1
+    path QP of ``cfg`` on the batch (the stages run eagerly, then one
+    read): what the rough far-away rows change."""
+    _, _, geo, _, _ = stages(gm, scs, cfg)
+    rows = fused_rounds.collision_rows(
+        pipeline.build_path_qp(scs, geo, cfg).coll_coef)
+    return not bool((rows == rows[:1]).all())
 
 
 def drive_replan(gm, scs, cfg, device="cuda") -> dict:
@@ -1662,7 +1679,7 @@ LONG_RUNS = (
     ("long", scenarios.LONG_CONFIG, False, REPEATS,
      ["fused_admm_round[nb=6,N=512,c="], "whole"),
     ("long_rough", dict(scenarios.LONG_CONFIG, **VARIANTS["rough"]), False,
-     REPEATS, ["fused_admm_round[nb=6,rough,N=512,c="], "whole"),
+     REPEATS, ["fused_admm_round[nb=6,N=512,c="], "whole"),
     ("stretch", scenarios.STRETCH_CONFIG, False, REPEATS,
      ["fused_structured_round[nb=4,r=3,N=384,c=2]",
       "fused_structured_round[nb=3,r=3,N=300,c=2]"], "whole"),

@@ -15,11 +15,12 @@ data, or a shape the data decides):
   cold, warm-started (``x0``/``y0``/``rho0`` given) and cut by
   ``max_iter``; its rounds (a device tally) equal the eager rounds;
 - the host reads in a call are the loop condition's stand-ins and nothing
-  else: one a round (the dense trace: one a round, its refactor's test;
-  the path trace, which refactors by a select, none);
+  else: one a round;
 - a given and an omitted start are separate keys, and a second call
   reuses its key;
-- a trace has ``n_rounds`` rows.
+- a trace has ``n_rounds`` rows and runs exactly ``n_rounds`` rounds: 4,
+  1, and more than every lane needs to converge (the rows after it
+  frozen).
 
 Against the JAX package's jitted solvers on the same QPs, at the
 tolerances the port's tests of each solver already hold: the dense
@@ -63,6 +64,13 @@ SOLVER_NAMES = ("solve_qp", "solve_qp_batched", "trace_rounds",
                 "trace_path_rounds", "solve_path_qp_batched")
 TRACE_ROUNDS = 4
 CUT = 30      # max_iter of the cut variant: two rounds of 25
+# The traces' other lengths: one round, and past every lane's convergence
+# (the dense QP converges in 2 rounds, the path QPs in 6).
+TRACE_LENGTHS = {"one": 1, "past": 8}
+CASES = ([(name, variant) for variant in ("cold", "warm", "cut")
+          for name in SOLVER_NAMES]
+         + [(name, variant) for name in ("trace_rounds", "trace_path_rounds")
+            for variant in TRACE_LENGTHS])
 
 
 @pytest.fixture
@@ -94,7 +102,9 @@ def tension2_qp():
 
 def case(name, variant):
     """(compiled, eager, args, kwargs) of one solver in
-    one variant: "cold", "warm" (a start given) or "cut" (max_iter cut)."""
+    one variant: "cold", "warm" (a start given) or "cut" (max_iter cut);
+    a trace also "one" and "past" (cold, of :data:`TRACE_LENGTHS`
+    rounds)."""
     rng = np.random.default_rng(5)
     st = QPSettings(max_iter=CUT) if variant == "cut" else QPSettings()
     kw = dict(settings=st)
@@ -111,7 +121,7 @@ def case(name, variant):
             kw.update(x0=rand(q.shape, q.dtype),
                       y0=rand(l.shape, l.dtype))
         if name == "trace_rounds":
-            kw["n_rounds"] = TRACE_ROUNDS
+            kw["n_rounds"] = TRACE_LENGTHS.get(variant, TRACE_ROUNDS)
     elif name == "solve_structured_batched":
         qp = tension2_qp()
         args = (qp,)
@@ -127,10 +137,10 @@ def case(name, variant):
                       y0_knot=rand((B, N, 6), torch.float32),
                       y0_end=rand((B, 2), torch.float32),
                       rho0=torch.full((B,), 0.3))
-        elif variant == "cold":
+        elif variant != "cut":
             kw["rho0"] = 0.1      # a number: a 0-d tensor of the key
         if name == "trace_path_rounds":
-            kw["n_rounds"] = TRACE_ROUNDS
+            kw["n_rounds"] = TRACE_LENGTHS.get(variant, TRACE_ROUNDS)
     mod = {"solve_qp": admm, "solve_qp_batched": admm, "trace_rounds": admm,
            "solve_structured_batched": structured}.get(name, path_solver)
     return (getattr(mod, name), getattr(mod, name + "_eager"), args, kw)
@@ -158,27 +168,21 @@ def strip(sol):
             if dataclasses.is_dataclass(sol) else sol)
 
 
-def expected_reads(name, out):
-    """The condition's stand-ins a call makes: one a round of a loop; the
-    dense trace one a round (its refactor's test); the path trace none."""
-    if name == "trace_rounds":
-        return TRACE_ROUNDS
-    if name == "trace_path_rounds":
-        return 0
-    return int(out.rounds)
+def rounds_run(name, out, kw):
+    """The rounds a call ran: a trace's ``n_rounds``, a solve's count."""
+    return kw["n_rounds"] if name.startswith("trace") else int(out.rounds)
 
 
-@pytest.mark.parametrize("variant", ["cold", "warm", "cut"])
-@pytest.mark.parametrize("name", SOLVER_NAMES)
+@pytest.mark.parametrize("name, variant", CASES)
 def test_compiled_equals_eager(name, variant, guarded):
     """Bit for bit the eager twin in every field, its rounds, one key, and
-    only the condition's reads inside the call."""
+    only the condition's reads inside the call, one a round."""
     fn, eager, args, kw = case(name, variant)
     want = eager(*args, **kw)
     CaptureGuard.loop_reads = 0
     got = fn(*args, **kw)
     assert CaptureGuard.seen > 0
-    assert CaptureGuard.loop_reads == expected_reads(name, got)
+    assert CaptureGuard.loop_reads == rounds_run(name, got, kw)
     assert len(torchutil.SOLVERS.entries) == 1
     assert same(strip(got), strip(want))
     if dataclasses.is_dataclass(got):
@@ -187,10 +191,13 @@ def test_compiled_equals_eager(name, variant, guarded):
         if variant == "cut":
             assert int(got.iters.max()) <= -(-CUT // CHECK) * CHECK
     else:
-        assert all(v.shape[0] == TRACE_ROUNDS for v in got.values())
+        assert all(v.shape[0] == kw["n_rounds"] for v in got.values())
+        if variant == "past" and name == "trace_path_rounds":
+            assert bool(got["converged"][-2].all())
+        elif variant == "past":
+            assert torch.equal(got["x"][-1], got["x"][-2])
     segs = next(iter(torchutil.SOLVERS.entries.values()))
-    assert segs.sync() == {"qp": (TRACE_ROUNDS if name.startswith("trace")
-                                  else want.rounds)}
+    assert segs.sync() == {"qp": rounds_run(name, want, kw)}
 
 
 @pytest.mark.parametrize("name", ["solve_qp", "solve_qp_batched",

@@ -20,8 +20,8 @@ device as the card keeps them.
   stops them where the JAX package's ``while_loop`` does: the port's QP
   solvers through a compiled runner against the JAX package's solvers on
   the same QPs, and the whole compiled call against the eager one.
-- Collision rows K2 does not take: the eager path raises at the first
-  round's read; a compiled call converges no lane and raises when its
+- Collision rows K2 does not take: the eager path raises before the
+  first round; a compiled call converges no lane and raises when its
   checks are read.
 """
 
@@ -124,10 +124,12 @@ def check_program(drv, ok):
 
 
 def test_a_check_is_carried_on_the_device():
-    """Segments.check: nothing on the eager path (there the loop's read
-    raises); in a compiled call a False flag raises at the first sync
-    after that call and only there, a True one never."""
-    Segments().check("rows", torch.tensor(False), "bad rows")
+    """Segments.check: on the eager path a False flag raises where it is
+    checked, a True one never; in a compiled call a False flag raises at
+    the first sync after that call and only there, a True one never."""
+    Segments().check("rows", torch.tensor(True), "bad rows")
+    with pytest.raises(ValueError, match="bad rows"):
+        Segments().check("rows", torch.tensor(False), "bad rows")
     segs = Segments()
     segs.call(check_program, (torch.tensor(True),))
     assert segs.sync() == {}
@@ -182,8 +184,8 @@ def counted(monkeypatch):
             return out
         monkeypatch.setattr(mod, attr, counting)
     wrap(fused_rounds, "fused_factor", lambda d, o: f"nb={d.shape[1]}")
-    wrap(fused_rounds, "fused_admm_round", lambda cc, Ci, *a, key="nb=6",
-         **kw: f"{key},N={Ci.shape[0]},c=1")
+    wrap(fused_rounds, "fused_admm_round", lambda cc, Ci, *a, **kw:
+         f"nb=6,N={Ci.shape[0]},c=1")
     wrap(fused_rounds, "fused_structured_round", lambda Ci, Wp, ac, *a,
          **kw: f"nb={Ci.shape[1]},r={ac.shape[1]},N={Ci.shape[0]},c=1")
     monkeypatch.setattr(corridor, "dp_forward", _count_dp(corridor.dp_forward))
@@ -226,7 +228,7 @@ def _count_dp(fn):
 def test_launch_counts_by_key_equal_eager(name, guarded, counted):
     """A replayed call counts nothing while it runs; read once
     (kernels.sync_counts), its launches by kernel and key equal the eager
-    call's, K2's rows key included (decided in the key's warm-up)."""
+    call's."""
     gm, scs = small_batch()
     cfg = PlannerConfig(**SMALL, **{
         "default": {}, "rough": dict(rough_constraints_far_away=True)}[name])
@@ -387,8 +389,8 @@ def test_path_loop_cut_matches_jax(max_iter):
 # ------------------------- rows K2 does not take -----------------------------
 
 def test_bad_collision_rows_raise_eager_and_at_the_deferred_read():
-    """A kappa term in one collision row: the eager solve raises at the
-    first round's read; the compiled one converges no lane and raises
+    """A kappa term in one collision row: the eager solve raises before
+    the first round; the compiled one converges no lane and raises
     when its checks are read (kernels.sync_counts), as on the card, where
     no read is made inside the call."""
     inp = path_inputs()

@@ -353,7 +353,7 @@ def k2_case():
         lane(ube), lane(rk), lane(re), es, lane(qp.p_diag), lane(v),
         lane(zk), lane(ze), lane(yk), lane(ye), iters=iters, alpha=ST.alpha,
         sigma=ST.sigma, interpret=True)
-    args = (fused_rounds.collision_rows(t(qp.coll_coef))[0], t(ci_l),
+    args = (fused_rounds.collision_rows(t(qp.coll_coef)), t(ci_l),
             t(wp_l), t(lane(qp.t_prev)), t(lane(lbk)), t(lane(ubk)),
             t(lane(lbe)), t(lane(ube)), t(lane(rk)), t(lane(re)),
             t(qp.end_idx).to(torch.int32),

@@ -122,7 +122,7 @@ def test_pallas_k2_departs_from_the_xla_round_on_rough_rows_the_port_not():
     xla = xla_round(qp, jnp.moveaxis(ci_l, -1, 0),
                     jnp.moveaxis(wp_l, -1, 0)[:, 1:], state, rk, re, bnd)
     got = fused_rounds.fused_admm_round(
-        fused_rounds.collision_rows(t(qp.coll_coef))[0], t(ci_l), t(wp_l),
+        fused_rounds.collision_rows(t(qp.coll_coef)), t(ci_l), t(wp_l),
         t(lane(qp.t_prev)), *(t(lane(a)) for a in bnd), t(lane(rk)),
         t(lane(re)), t(qp.end_idx).to(torch.int32), t(lane(qp.p_diag)),
         *(t(lane(a)) for a in state), ST.check_every, ST.alpha, ST.sigma)
@@ -135,12 +135,12 @@ def test_pallas_k2_departs_from_the_xla_round_on_rough_rows_the_port_not():
 def test_collision_rows_refuses_other_structures():
     """K2 takes rows with zero kappa and u columns and one unit slack each;
     collision_rows raises ValueError on anything else, on the CPU as on
-    the GPU, before any round."""
+    the GPU, before any round. The rough QP's rows differ by knot."""
     qp = rough_qps([0.5])
     cc = t(qp.coll_coef)
-    rows, key = fused_rounds.collision_rows(cc)
-    assert key == "nb=6,rough"
+    rows = fused_rounds.collision_rows(cc)
     assert rows.shape == (16, 2, 2, 1) and rows.is_contiguous()
+    assert not bool((rows == rows[:1]).all())
     np.testing.assert_array_equal(
         fused_rounds.coll_coef_from_rows(rows).numpy(), cc.numpy())
     for col, val in ((2, 0.5), (3, 1.0), (4, 2.0), (5, 1.0)):

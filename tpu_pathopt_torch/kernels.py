@@ -16,12 +16,14 @@ K3 also the knots and the launch plan's cluster size, e.g.
 size, ``dp_forward[K=135,c=1]``; for K5 the corridor's layers and
 the knots, ``geometry[M=32,N=128]``; for K6 the layers and the laterals,
 ``lattice[L=32,K=35]``), so a run can show that the main path
-went through each kernel at each of its shapes and plans. A captured CUDA
+went through each kernel at each of its shapes and plans. A key names the
+kernel, its shape and its plan, never the data. A captured CUDA
 graph launches its kernels at every replay without the wrappers running,
 and how often its loop bodies run is known only on the device: a compiled
 call's counts are added when they are read (:func:`sync_counts`, which
 :func:`reset_launches` calls first), from the device's count of rounds and
-refactors times the launches each body's capture recorded.
+refactors times the launches each body's capture recorded
+(:func:`recording`).
 
 ``geometry.cu`` (K5) is no TPU kernel's port either: it runs the geometry
 stage, which the JAX package leaves to XLA, as one launch
@@ -37,6 +39,7 @@ the stamps and node counts of a traced compiled call (``profiling``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -101,51 +104,39 @@ def reset_launches():
     shape_launches.clear()
 
 
+# The open :func:`recording` blocks' dicts, innermost last.
+_recordings: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, :func:`count_launch` adds to the dict it yields
+    (``"name[shape]"`` -> launches) instead of counting: a capture records
+    launches without running them, and its graph's replays count them
+    (:func:`add_counts`). Blocks nest; the innermost one records."""
+    counts: dict = {}
+    _recordings.append(counts)
+    try:
+        yield counts
+    finally:
+        _recordings.pop()
+
+
 def count_launch(name: str, shape: str):
-    """Count one launch of kernel ``name`` at block shape ``shape``."""
-    launches[name] += 1
+    """Count one launch of kernel ``name`` at block shape ``shape`` (inside
+    a :func:`recording` block, record it)."""
     key = f"{name}[{shape}]"
+    if _recordings:
+        counts = _recordings[-1]
+        counts[key] = counts.get(key, 0) + 1
+        return
+    launches[name] += 1
     shape_launches[key] = shape_launches.get(key, 0) + 1
 
 
-def fill_key(tag: str, value: str, counts: dict | None = None):
-    """Replace ``tag`` by ``value`` in every launch key of ``counts``
-    (default :data:`shape_launches`) that holds it. A wrapper launched
-    before the host has read a part of its key (K2's collision rows, read
-    with the round's flags) counts under a key holding the tag; the caller
-    fills it once it has read the value."""
-    counts = shape_launches if counts is None else counts
-    for key in [k for k in counts if tag in k]:
-        n = counts.pop(key)
-        new = key.replace(tag, value)
-        counts[new] = counts.get(new, 0) + n
-
-
-def snapshot():
-    """The launch counts as they stand, for :func:`delta` and
-    :func:`restore`."""
-    return dict(launches), dict(shape_launches)
-
-
-def delta(before) -> dict:
-    """The launches counted since ``before`` (a :func:`snapshot`), by
-    ``"name[shape]"`` key."""
-    return {k: n - before[1].get(k, 0) for k, n in shape_launches.items()
-            if n != before[1].get(k, 0)}
-
-
-def restore(before):
-    """Set the counts back to ``before``: a capture records launches without
-    running them, so its counts move to the replays (:func:`add_counts`)."""
-    launches.clear()
-    launches.update(before[0])
-    shape_launches.clear()
-    shape_launches.update(before[1])
-
-
 def add_counts(counts: dict, times: int = 1):
-    """Count the launches ``counts`` (a :func:`delta`) ``times`` more: a
-    graph replays every kernel its capture recorded."""
+    """Count the launches ``counts`` (a :func:`recording`) ``times`` more:
+    a graph replays every kernel its capture recorded."""
     for key, n in counts.items():
         launches[key.split("[", 1)[0]] += n * times
         shape_launches[key] = shape_launches.get(key, 0) + n * times

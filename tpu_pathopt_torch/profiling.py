@@ -72,6 +72,10 @@ CALL_SPANS = ("entry", "key", "load", "replay", "clone")
 BRACKETS = 16
 # The host spans a tracer keeps, the oldest overwritten.
 SPANS = 1 << 16
+# A traced key's stamp ring (``torchutil.Segments.stamp``): a row a call,
+# the oldest overwritten, and the slots of a row.
+RING_ROWS = 4096
+RING_SLOTS = 32
 
 # Process-wide counts: how many times a graph was captured, a key warmed
 # up (before each capture; on the CPU under a call guard), a key was
@@ -374,7 +378,6 @@ class Tracer:
 
 def _ring_rows(segs) -> tuple:
     """(calls the key's ring has seen, its rows as lists of int)."""
-    from tpu_pathopt_torch.torchutil import RING_SLOTS
     if segs.device.type == "cuda":
         flat = torch.cat([segs.counter, segs.ring.reshape(-1)]).tolist()
         count, vals = flat[0], flat[1:]

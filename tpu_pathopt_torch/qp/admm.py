@@ -21,8 +21,8 @@ CUDA).
 
 Each is a compiled call, as the JAX package jits them
 (``torchutil.compiled``): on CUDA one graph per static key, the rounds a
-WHILE node and the refactor an IF node in it (the trace: its rounds
-captured straight, each refactor an IF node), no host read inside a call.
+WHILE node and the refactor an IF node in it (the trace's WHILE node
+counts its rounds on the device), no host read inside a call.
 ``<name>_eager`` runs the same program from the host, one read a round.
 No entry point of the pipeline uses the dense solver: it is the yardstick
 the structured solvers are held to, and the single-scenario smoothers'
@@ -37,7 +37,7 @@ import functools
 import torch
 
 from tpu_pathopt_torch.torchutil import (EAGER, SOLVERS, compiled,
-                                         highest_precision, write_row)
+                                         highest_precision, scan_round)
 
 INFTY = 1e20
 
@@ -335,7 +335,9 @@ _TRACE_KEYS = ("x", "z", "y", "rho_bar", "pri_res", "dua_res")
 def _trace_program(drv, P, q, A, l, u, x0, y0, settings, n_rounds):
     """Exactly ``n_rounds`` rounds of :func:`solve_qp`'s program (the
     JAX package's ``lax.scan``), each recorded into its row of buffers
-    allocated before the first."""
+    allocated before the first (``torchutil.scan_round``; a refactor
+    changes nothing the trace records, so the row is written before
+    it)."""
     st = settings
     with highest_precision():
         run = drv("setup", functools.partial(_setup, st=st, factor=_factor),
@@ -345,14 +347,11 @@ def _trace_program(drv, P, q, A, l, u, x0, y0, settings, n_rounds):
                            device=v.device)
             for k, v in zip(_TRACE_KEYS, (run.x, run.z, run.y, run.rho_bar,
                                           run.pri, run.dua))}, run)
-
-        def record(run, i):
-            drv("trace.record", lambda run, i: write_row(
-                [tr[k] for k in _TRACE_KEYS], _observed(run), i), run, i)
-        drv.repeat("qp", run,
-                   functools.partial(_round, st=st, solve=_chol_solve),
-                   functools.partial(_refactor, st=st, factor=_factor),
-                   n_rounds, each=record)
+        drv.loop("qp", run, scan_round(
+            functools.partial(_round, st=st, solve=_chol_solve),
+            [tr[k] for k in _TRACE_KEYS], _observed, n_rounds),
+            functools.partial(_refactor, st=st, factor=_factor),
+            n_rounds > 0)
     return tr
 
 

@@ -11,7 +11,7 @@ Serves the TENSION2 (nb = 4, r = 3), post-smoothing (nb = 3, r = 3) and
 TENSION (nb = 9, r = 9) QPs.
 OSQP semantics: relaxed ADMM, per-row rho classes, per-element adaptive rho
 with selective refactor, unscaled-residual termination; converged elements
-stay frozen. The rounds run batch-global (:func:`run_rounds`): setup,
+stay frozen. The rounds run batch-global (``Segments.loop``): setup,
 round and refactor are separate functions over one in-place state, and each
 round computes its loop test and refactor gate on the device, so a compiled
 call runs them as conditional nodes of one CUDA graph.
@@ -124,7 +124,7 @@ class StructuredSolution:
     pri_res: torch.Tensor
     dua_res: torch.Tensor
     # Batch-global rounds run: an int on the eager path, a 0-d device
-    # tensor in a compiled call (``run_rounds``).
+    # tensor in a compiled call (``Segments.loop``).
     rounds: int | torch.Tensor = 0
 
 
@@ -132,7 +132,7 @@ class StructuredSolution:
 class StructuredRun:
     """One batch of block-banded solves in flight: the QP, its kernel-layout
     copies and row classes (read only), and the loop state, which the
-    rounds and refactors update in place (:func:`run_rounds`). ``flags``
+    rounds and refactors update in place (``Segments.loop``). ``flags``
     is the round's loop test and refactor gate: any element still active,
     any element that needs a refactor."""
     qp: BlockBandedQP
@@ -263,26 +263,6 @@ def structured_refactor(run: StructuredRun, settings: QPSettings
         Ci=torch.where(fsel, Ci_n, run.Ci), W=torch.where(fsel, W_n, run.W))
 
 
-def run_rounds(drv, name: str, run, round_fn, refactor_fn, max_iter: int,
-               on_read=None):
-    """The rounds of a QP solve, shared by every solver of the port: the
-    JAX package's ``lax.while_loop`` on ``any(~converged & (iters <
-    max_iter))`` with a ``lax.cond`` around the refactor. Each round
-    (segment ``name + ".round"``) computes its ``flags`` on the device (any
-    element active, any element needs a refactor); a refactor (``name +
-    ".refactor"``) follows each round that asks for one, and the rounds
-    stop at the first round whose first flag is False. Every element
-    starts unconverged at iteration 0, so the first round runs whenever
-    ``max_iter`` > 0. ``drv`` is a ``torchutil.Segments``: on the eager
-    path a host loop with one read a round (``on_read(flags)``, if given,
-    sees every read), in a compiled call on the card a WHILE node around
-    the round and an IF node around the refactor (:meth:`Segments.loop`).
-    Returns (run, rounds): rounds an int on the eager path, a 0-d device
-    tensor in a compiled call."""
-    return drv.loop(name, run, round_fn, refactor_fn, max_iter > 0,
-                    on_read=on_read)
-
-
 def structured_solution(run: StructuredRun, rounds
                         ) -> StructuredSolution:
     return StructuredSolution(v=run.v, y=run.y, z=run.z, iters=run.it,
@@ -292,11 +272,15 @@ def structured_solution(run: StructuredRun, rounds
 
 def solve_structured(drv, name: str, run: StructuredRun,
                      settings: QPSettings) -> tuple:
-    """The rounds of a set-up solve through the segment runner ``drv``."""
-    return run_rounds(
-        drv, name, run, functools.partial(structured_round, settings=settings),
-        functools.partial(structured_refactor, settings=settings),
-        settings.max_iter)
+    """The rounds of a set-up solve through the segment runner ``drv``:
+    the JAX package's ``lax.while_loop`` on ``any(~converged & (iters <
+    max_iter))`` with a ``lax.cond`` around the refactor. Every element
+    starts unconverged at iteration 0, so the first round runs whenever
+    ``max_iter`` > 0. Returns (run, rounds)."""
+    return drv.loop(name, run, functools.partial(structured_round,
+                                                 settings=settings),
+                    functools.partial(structured_refactor, settings=settings),
+                    settings.max_iter > 0)
 
 
 def _program(drv, qp: BlockBandedQP, v0, y0, settings: QPSettings

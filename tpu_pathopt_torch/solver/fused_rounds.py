@@ -282,10 +282,9 @@ def fused_factor(diag, offp):
 
 def collision_rows_device(coll_coef):
     """:func:`collision_rows` without its host read: the rows (N, 2, 2, B)
-    and a (2,) bool device tensor [the rows have K2's structure, they are
-    the same at every knot of every scenario], for the caller to read with
-    other flags and pass to :func:`check_rows_flags`. Only the shape is
-    checked here (it is known on the host)."""
+    and a 0-d bool device tensor, whether they have K2's structure, for
+    the caller to check (``Segments.check``, :data:`ROWS_ERROR`). Only the
+    shape is checked here (it is known on the host)."""
     if coll_coef.dim() != 4 or tuple(coll_coef.shape[2:]) != (2, 6):
         raise ValueError(f"coll_coef: shape {tuple(coll_coef.shape)}, "
                          "expected (B, N, 2, 6)")
@@ -293,36 +292,27 @@ def collision_rows_device(coll_coef):
     slack = torch.eye(2, dtype=coll_coef.dtype, device=coll_coef.device)
     ok = (coll_coef[..., 2:4] == 0).all() & (coll_coef[..., 4:6]
                                               == slack).all()
-    return lane(rows.to(F32)), torch.stack([ok, (rows == rows[:1, :1]).all()])
+    return lane(rows.to(F32)), ok
 
 
 ROWS_ERROR = ("coll_coef: K2 takes collision rows with zero kappa and u "
               "columns and the slack columns [[1, 0], [0, 1]]")
 
 
-def check_rows_flags(ok):
-    """Raise ValueError unless ``ok`` (the first flag of
-    :func:`collision_rows_device`, read to the host) holds."""
-    if not ok:
-        raise ValueError(ROWS_ERROR)
-
-
 def collision_rows(coll_coef):
     """The collision rows' coefficients K2 takes, from a path QP's
     ``coll_coef`` (B, N, 2, 6): those of l and e_psi in each row, lane-major
-    (N, 2, 2, B), one set per knot and scenario; and the key K2's launches
-    are counted under, ``"nb=6"`` where every knot of every scenario has the
-    same rows, ``"nb=6,rough"`` where they differ by knot (the rough
-    far-away rows). K2's rows have no kappa or u term and one slack each,
-    s_front in row 0 and s_rear in row 1, with coefficient 1; any other
-    ``coll_coef`` raises ValueError, on any device, so no round iterates an
-    operator other than the one factored. One host read. The path solver
-    takes :func:`collision_rows_device` and reads its flags with the first
-    round's."""
-    rows, flags = collision_rows_device(coll_coef)
-    ok, uniform = flags.tolist()
-    check_rows_flags(ok)
-    return rows, "nb=6" if uniform else "nb=6,rough"
+    (N, 2, 2, B), one set per knot and scenario (they differ by knot under
+    the rough far-away rows). K2's rows have no kappa or u term and one
+    slack each, s_front in row 0 and s_rear in row 1, with coefficient 1;
+    any other ``coll_coef`` raises ValueError, on any device, so no round
+    iterates an operator other than the one factored. One host read. The
+    path solver takes :func:`collision_rows_device` and checks its flag
+    before the rounds."""
+    rows, ok = collision_rows_device(coll_coef)
+    if not ok.item():
+        raise ValueError(ROWS_ERROR)
+    return rows
 
 
 def coll_coef_from_rows(cc):
@@ -373,9 +363,9 @@ def path_residuals(ops, p_diag, v, zk, ze, yk, ye):
 
 
 def admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
-                     pd, v, zk, ze, yk, ye, iters, alpha, sigma, key=None):
+                     pd, v, zk, ze, yk, ye, iters, alpha, sigma):
     """K2's plain version, same arguments and layout as
-    :func:`fused_admm_round` (``key`` unused)."""
+    :func:`fused_admm_round`."""
     ops = (unlane(tp), coll_coef_from_rows(cc), end_idx)
     Cb, Wb = unlane(Ci), unlane(Wp)[:, 1:]
     bnd = tuple(unlane(a) for a in (lbk, ubk, lbe, ube))
@@ -390,12 +380,12 @@ def admm_round_plain(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
 
 def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
                      pd, v, zk, ze, yk, ye, iters: int, alpha: float,
-                     sigma: float, key: str = "nb=6", _cluster=None):
+                     sigma: float, _cluster=None):
     """``iters`` ADMM iterations of the path QP in one launch (K2).
 
     cc (N, 2, 2, B): each knot's collision rows, the coefficients of l and
-    e_psi in row 0 (+ s_front) and row 1 (+ s_rear), and ``key`` the launch
-    counter's key, both from :func:`collision_rows`. Lane-major float32:
+    e_psi in row 0 (+ s_front) and row 1 (+ s_rear), from
+    :func:`collision_rows`. Lane-major float32:
     Ci/Wp (N, 6, 6, B), tp (N, 3, 6, B), lbk/ubk/rk/pd/v/zk/yk (N, 6, B),
     lbe/ube/re/ze/ye (2, B); end_idx (B,) int32, clamped into [0, N). Returns
     (v, zk, ze, yk, ye, res) with res (4, B) = per-scenario [pri_res,
@@ -432,7 +422,7 @@ def fused_admm_round(cc, Ci, Wp, tp, lbk, ubk, lbe, ube, rk, re, end_idx,
         float(sigma), kernels.stream_ptr(dev))
     kernels.check(err, "fused_admm_round")
     kernels.count_launch("fused_admm_round",
-                         f"{key},N={N},c={plan.cluster}")
+                         f"nb=6,N={N},c={plan.cluster}")
     return v, zk, ze, yk, ye, res
 
 

@@ -11,9 +11,9 @@ kernel K1 and every ``check_every``-iteration round through kernel K2, whose
 arrays are batch-last; the residuals come back from the kernel. Otherwise the
 plain PyTorch rounds run, their solve by parallel prefix where
 ``settings.pscan`` asks for it (it selects nothing for the kernels, as in the
-JAX package). The rounds are batch-global (``structured.run_rounds``):
-setup, round and refactor are separate functions over one in-place state,
-each round computing its loop test and refactor gate on the device.
+JAX package). The rounds are batch-global (``Segments.loop``): setup,
+round and refactor are separate functions over one in-place state, each
+round computing its loop test and refactor gate on the device.
 
 :func:`solve_path_qp` and :func:`trace_path_rounds` run the JAX package's
 scalar rounds (uninverted factors, a refactor every round) on a batch; the
@@ -33,12 +33,11 @@ import torch
 
 from tpu_pathopt_torch.qp import btridiag
 from tpu_pathopt_torch.qp.admm import QPSettings
-from tpu_pathopt_torch.qp.structured import run_rounds
 from tpu_pathopt_torch.solver import assembly, fused_rounds
 from tpu_pathopt_torch.solver.assembly import PathQP
 from tpu_pathopt_torch.solver.fused_rounds import lane, unlane
 from tpu_pathopt_torch.torchutil import (EAGER, SOLVERS, compiled, scalar,
-                                         write_row)
+                                         scan_round)
 
 
 @dataclasses.dataclass
@@ -54,7 +53,7 @@ class PathQPSolution:
     # across warm-started re-solves, base_solver.cpp:97-117).
     rho_bar: torch.Tensor    # (B,)
     # Batch-global rounds run: an int on the eager path, a 0-d device
-    # tensor in a compiled call (``structured.run_rounds``).
+    # tensor in a compiled call (``Segments.loop``).
     rounds: int | torch.Tensor = 0
 
 
@@ -233,19 +232,16 @@ def _trace_program(drv, qp: PathQP, v0, y0_knot, y0_end, rho0,
                    settings: QPSettings, n_rounds: int) -> dict:
     """Exactly ``n_rounds`` rounds of the scalar solver (the JAX package's
     ``lax.scan``), each recorded into its row of buffers allocated before
-    the first."""
+    the first (:func:`torchutil.scan_round`)."""
     run = drv("setup", lambda q, a, b, c, r: _scalar_setup(
         q, a, b, c, settings, rho0=r), qp, v0, y0_knot, y0_end, rho0)
     tr = drv("trace.alloc", lambda run: {
         k: torch.empty((n_rounds,) + v.shape, dtype=v.dtype, device=v.device)
         for k, v in zip(_TRACE_KEYS, _observed(run))}, run)
-
-    def record(run, i):
-        drv("trace.record", lambda run, i: write_row(
-            [tr[k] for k in _TRACE_KEYS], _observed(run), i), run, i)
-    drv.repeat("qp", run, functools.partial(_scalar_round,
-                                            settings=settings), None,
-               n_rounds, each=record)
+    drv.loop("qp", run, scan_round(
+        functools.partial(_scalar_round, settings=settings),
+        [tr[k] for k in _TRACE_KEYS], _observed, n_rounds), None,
+        n_rounds > 0)
     return tr
 
 
@@ -265,8 +261,9 @@ def trace_path_rounds(qp: PathQP, settings: QPSettings = QPSettings(),
     converged, each (n_rounds, B). Converged elements freeze, so the
     trajectory is what the solve ran. It is the reference's OSQP
     ``verbose = true`` (base_solver.cpp:59), the CLI's ``--verbose-qp``.
-    A compiled call keyed by ``n_rounds`` too (on CUDA one graph with no
-    conditional node), bit for bit :func:`trace_path_rounds_eager`."""
+    A compiled call keyed by ``n_rounds`` too (on CUDA one graph, the
+    rounds a WHILE node on a device counter), bit for bit
+    :func:`trace_path_rounds_eager`."""
     return compiled(
         SOLVERS, ("trace_path_rounds", settings, n_rounds),
         functools.partial(_trace_program, settings=settings,
@@ -281,8 +278,9 @@ class PathRun:
     read of it (bounds, row classes, the kernel-layout copies), and the loop
     state, which the rounds and refactors update in place. ``flags`` holds
     [any element active, any element needs a refactor, K2's collision rows
-    have its structure, they are the same at every knot] (the last two from
-    the setup); the eager path reads all four at the end of each round."""
+    have its structure] (the last from the setup, checked by
+    :func:`solve_path`); the eager path reads them at the end of each
+    round."""
     qp: PathQP
     bounds: tuple            # (lb_knot, ub_knot, lb_end, ub_end)
     cls: tuple               # (cls_knot, cls_end)
@@ -322,8 +320,8 @@ def path_setup(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
     state before the first round, in K2's batch-last layout with
     ``fused_rounds``. Every state tensor is new (a given warm start is
     copied), so the rounds may write into it. With ``fused_rounds`` the
-    collision rows' structure is checked on the device; the first round's
-    read raises on it (:func:`check_rows`)."""
+    collision rows' structure is checked on the device (``flags[2]``,
+    which :func:`solve_path` holds)."""
     st = settings
     B, N = qp.p_diag.shape[:2]
     dt, dev = qp.p_diag.dtype, qp.p_diag.device
@@ -343,7 +341,7 @@ def path_setup(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
     zk, ze = assembly.a_mul_blocks(qp.t_prev, qp.coll_coef, end_idx, v)
     state = (v, zk, ze, yk, ye)
     lanes = None
-    rows_ok = torch.ones((2,), dtype=torch.bool, device=dev)
+    rows_ok = torch.ones((), dtype=torch.bool, device=dev)
     if st.fused_rounds:
         # Kernel layout for the whole solve: batch last.
         cc_l, rows_ok = fused_rounds.collision_rows_device(qp.coll_coef)
@@ -364,7 +362,7 @@ def path_setup(qp: PathQP, v0=None, y0_knot=None, y0_end=None,
         dua=torch.full((B,), torch.inf, dtype=dt, device=dev),
         need=torch.zeros((B,), dtype=torch.bool, device=dev),
         flags=torch.cat([torch.ones((2,), dtype=torch.bool, device=dev),
-                         rows_ok]))
+                         rows_ok.reshape(1)]))
 
 
 def _sel(run: PathRun, mask, a):
@@ -386,7 +384,7 @@ def path_round(run: PathRun, settings: QPSettings) -> PathRun:
         *new, res = fused_rounds.fused_admm_round(
             cc_l, run.Ci, run.W, tp_l, lbk_l, ubk_l, lbe_l, ube_l, run.rk,
             run.re, end_i32, pd_l, *run.state, iters=st.check_every,
-            alpha=st.alpha, sigma=st.sigma, key=f"nb=6{ROWS_TAG}")
+            alpha=st.alpha, sigma=st.sigma)
     else:
         ops = (run.qp.t_prev, run.qp.coll_coef, run.end_idx)
         solve = (btridiag.solve_batched_pscan if st.pscan
@@ -440,19 +438,6 @@ def path_refactor(run: PathRun, settings: QPSettings) -> PathRun:
         W=torch.where(_sel(run, need, run.W), W_n, run.W))
 
 
-# The part of K2's launch key that the first round's read decides: its
-# collision rows are the same at every knot ("nb=6") or not ("nb=6,rough").
-ROWS_TAG = "{rows}"
-
-
-def check_rows(flags) -> dict:
-    """After a round's read: raise where the setup found collision rows K2
-    does not take; return the fill of K2's launch key (``{ROWS_TAG:
-    value}``), what the rows are."""
-    fused_rounds.check_rows_flags(flags[2])
-    return {ROWS_TAG: "" if flags[3] else ",rough"}
-
-
 def path_solution(run: PathRun, rounds) -> PathQPSolution:
     state = run.state
     if run.lanes is not None:
@@ -466,13 +451,13 @@ def path_solution(run: PathRun, rounds) -> PathQPSolution:
 
 def solve_path(drv, name: str, run: PathRun, settings: QPSettings) -> tuple:
     """The rounds of a set-up solve through the segment runner ``drv``;
-    the collision rows' check rides on the first round's read on the eager
-    path and is carried on the device in a compiled call."""
+    the collision rows' check (:meth:`Segments.check`) raises here on the
+    eager path and is carried on the device in a compiled call."""
     drv.check(name + ".rows", run.flags[2], fused_rounds.ROWS_ERROR)
-    return run_rounds(
-        drv, name, run, functools.partial(path_round, settings=settings),
-        functools.partial(path_refactor, settings=settings),
-        settings.max_iter, on_read=check_rows)
+    return drv.loop(name, run, functools.partial(path_round,
+                                                 settings=settings),
+                    functools.partial(path_refactor, settings=settings),
+                    settings.max_iter > 0)
 
 
 def _batched_program(drv, qp: PathQP, v0, y0_knot, y0_end, rho0,
@@ -489,7 +474,7 @@ def solve_path_qp_batched_eager(qp: PathQP, v0=None, y0_knot=None,
                                 rho0=None) -> PathQPSolution:
     """:func:`solve_path_qp_batched` issued from the host, one read a
     round (``rounds`` a Python int); collision rows K2 does not take raise
-    at the first round's read."""
+    before the first round."""
     return _batched_program(EAGER, qp, v0, y0_knot, y0_end, rho0, settings)
 
 

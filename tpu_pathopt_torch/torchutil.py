@@ -10,6 +10,7 @@ from array import array
 import torch
 
 from tpu_pathopt_torch import kernels, profiling
+from tpu_pathopt_torch.profiling import RING_ROWS, RING_SLOTS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -134,10 +135,10 @@ _LOOP_READS = [0]
 
 @contextlib.contextmanager
 def loop_read():
-    """Marks the one host read a compiled call on the CPU makes in each
-    round of a device-side loop: the runner's stand-in for the condition a
-    conditional graph node tests on the card (:meth:`Segments.loop`). A
-    call guard (:data:`CALL_GUARD`) lets it pass (:func:`in_loop_read`)."""
+    """Marks the one host read of each round of a loop run on the host
+    (:meth:`Segments.loop`): in a compiled call on the CPU the runner's
+    stand-in for the condition a conditional graph node tests on the card.
+    A call guard (:data:`CALL_GUARD`) lets it pass (:func:`in_loop_read`)."""
     _LOOP_READS[0] += 1
     try:
         yield
@@ -149,12 +150,25 @@ def in_loop_read() -> bool:
     return _LOOP_READS[0] > 0
 
 
-def write_row(bufs, values, i):
-    """Write each of ``values`` into row ``i`` (a 0-d int64 device tensor)
-    of its buffer in ``bufs``, with no host read of ``i``: a trace's
-    record of a round inside a device-side loop."""
-    for b, v in zip(bufs, values):
-        b.index_copy_(0, i.reshape(1), v.unsqueeze(0))
+def scan_round(round_fn, bufs, observe, n: int):
+    """``round_fn`` as the round of a :meth:`Segments.loop` that runs
+    exactly ``n`` rounds whatever the lanes' convergence, the counterpart
+    of ``lax.scan`` over it (a trace): after each round each of
+    ``observe(run)`` goes into row ``i`` of its buffer in ``bufs``, ``i`` a
+    0-d int64 counter made here on the buffers' device and never read by
+    the host, and the loop's test ``run.flags[0]`` becomes ``i < n``; the
+    refactor's gate ``run.flags[1]`` stays the round's. The loop takes
+    ``start = n > 0``."""
+    i = torch.zeros((), dtype=torch.int64, device=bufs[0].device)
+
+    def fn(run):
+        run = round_fn(run)
+        for b, v in zip(bufs, observe(run)):
+            b.index_copy_(0, i.reshape(1), v.unsqueeze(0))
+        i.add_(1)
+        return dataclasses.replace(run, flags=torch.stack(
+            [i < n, run.flags[1]]))
+    return fn
 
 
 # ------------------------- segments (compiled calls) -------------------------
@@ -214,12 +228,6 @@ def _bump(tally: torch.Tensor, i: int):
     tally[i:i + 1].add_(1)
 
 
-# A traced key's stamp ring (``profiling``): a row a call, the oldest
-# overwritten, and the slots of a row.
-RING_ROWS = 4096
-RING_SLOTS = 32
-
-
 class Segments:
     """The runner of one program: the eager path's stage chain, or one
     compiled call's. The program's straight-line pieces are segments,
@@ -275,8 +283,7 @@ class Segments:
         self.loops: dict = {}     # name -> (4,) int64 tally on the device
         self.faults: dict = {}    # check name -> (1,) int64 tally
         self.messages: dict = {}  # check name -> its error message
-        self.fills: dict = {}     # loop name -> launch-key fills read
-        self.deltas: dict = {}    # body name -> its launches, once
+        self.bodies: dict = {}    # body name -> its launches, once
         self.static = None        # launches outside the loops, a call
         self.replays = 0          # calls whose launches are not yet added
         self._synced: dict = {}   # loop name -> (rounds, refactors) added
@@ -404,19 +411,15 @@ class Segments:
 
     # ------------------------------ loops ------------------------------------
 
-    def loop(self, name: str, run, round_fn, refactor_fn, start: bool,
-             on_read=None):
+    def loop(self, name: str, run, round_fn, refactor_fn, start: bool):
         """A QP solve's rounds: ``run = round_fn(run)`` (segment ``name +
         ".round"``) while ``run.flags[0]`` after it, and after each round
         ``run = refactor_fn(run)`` (segment ``name + ".refactor"``) where
         ``run.flags[1]``; no round where ``start`` is False. Both update
         ``run`` in place; a ``refactor_fn`` of None is a loop with no
-        refactor (no IF node). ``on_read(flags)``, if given, sees each
-        round's read on the eager path and in a warm-up and returns the
-        launch-key fills it decided (``{tag: value}``, see
-        ``kernels.fill_key``); a compiled call reuses the warm-up's. Returns ``(run, rounds)``:
-        rounds a Python int on the eager path, in a compiled call a 0-d
-        int64 device tensor (read only by :meth:`sync`)."""
+        refactor (no IF node). Returns ``(run, rounds)``: rounds a Python
+        int on the eager path, in a compiled call a 0-d int64 device tensor
+        (read only by :meth:`sync`)."""
         if self.traced:
             self.loop_stage[name] = self.stage
             self.stamp(name + ".start")
@@ -438,13 +441,8 @@ class Segments:
             rounds += 1
             if compiled:
                 _bump(tally, 0)
-                with loop_read():
-                    flags = self.read(run.flags)
-            else:
-                flags = self.read(run.flags)
-                if on_read is not None:
-                    self._fill(name, on_read(flags) or {})
-            active, need = flags[0], flags[1]
+            with loop_read():
+                active, need = self.read(run.flags)[:2]
             if need and refactor_fn is not None:
                 run = self._body(name, ".refactor", refactor_fn, run)
                 refactors += 1
@@ -483,59 +481,6 @@ class Segments:
             _bump(tally, 1)
         return run
 
-    def repeat(self, name: str, run, round_fn, refactor_fn, n: int,
-               each=None):
-        """Exactly ``n`` rounds, the counterpart of ``lax.scan`` over a
-        round: ``run = round_fn(run)`` (segment ``name + ".round"``), then
-        ``run = refactor_fn(run)`` where ``run.flags[1]`` (the round's
-        ``lax.cond``; None: no refactor), then ``each(run, i)`` with ``i``
-        the round's index, a 0-d int64 tensor on the device of
-        ``run.flags`` (a trace writes its row ``i``). Captured as a WHILE
-        node on a device counter (``i < n``; XLA compiles a scan to a loop
-        too: the body is captured once, not ``n`` times), each refactor an
-        IF node in it. Eager and on the
-        CPU a host loop of ``n`` rounds, each refactor's test one host
-        read, in a compiled call marked as the IF node's stand-in. Returns
-        ``run``."""
-        counted = self.mode in ("run", "capture")
-        tally = (self._tally(self.loops, name, 4) if self.mode != "eager"
-                 else None)
-        if counted:
-            tally[:2].zero_()
-        dev = run.flags.device
-        i = torch.zeros((), dtype=torch.int64, device=dev)
-        if self.mode == "capture":
-            more = torch.zeros((), dtype=torch.bool, device=dev)
-            with self._node(True, default=int(n > 0)) as handle:
-                run = self._body(name, ".round", round_fn, run)
-                _bump(tally, 0)
-                if refactor_fn is not None:
-                    run = self._if(name, run, refactor_fn, tally)
-                if each is not None:
-                    each(run, i)
-                i.add_(1)
-                torch.lt(i, n, out=more)
-                kernels.set_condition(handle, more, self._stream())
-            tally[2:] += tally[:2]
-            return run
-        for _ in range(n):
-            run = self._body(name, ".round", round_fn, run)
-            if counted:
-                _bump(tally, 0)
-            if refactor_fn is not None:
-                with loop_read() if counted else contextlib.nullcontext():
-                    need = self.read(run.flags)[1]
-                if need:
-                    run = self._body(name, ".refactor", refactor_fn, run)
-                    if counted:
-                        _bump(tally, 1)
-            if each is not None:
-                each(run, i)
-            i.add_(1)
-        if counted:
-            tally[2:] += tally[:2]
-        return run
-
     def _body(self, name, part, fn, run):
         """A loop's round or refactor, in place on ``run``. In a compiled
         call its launches are not counted as they happen: they are
@@ -543,27 +488,20 @@ class Segments:
         of how often the body ran (:meth:`sync`)."""
         if self.mode not in ("run", "capture"):
             return self(name + part, fn, run, into=run)
-        before = kernels.snapshot()
-        run = self(name + part, fn, run, into=run)
-        delta = kernels.delta(before)
-        kernels.restore(before)
-        for tag, value in self.fills.get(name, {}).items():
-            kernels.fill_key(tag, value, delta)
-        self.deltas.setdefault(name + part, delta)
+        with kernels.recording() as launches:
+            run = self(name + part, fn, run, into=run)
+        self.bodies.setdefault(name + part, launches)
         return run
 
-    def _fill(self, name, fills: dict):
-        for tag, value in fills.items():
-            kernels.fill_key(tag, value)
-        if self.mode == "warm":
-            self.fills[name] = fills
-
     def check(self, name: str, ok: torch.Tensor, message: str):
-        """A condition the eager path raises on when a loop reads it (its
-        ``on_read``), carried on the device in a compiled call: ``ok`` (a
-        0-d bool tensor) False in a call raises ``ValueError(message)`` at
-        the first :meth:`sync` after that call, and only there."""
+        """A condition ``ok`` (a 0-d bool tensor) that must hold, or
+        ``ValueError(message)``: on the eager path one host read of ``ok``
+        here; in a compiled call carried on the device, so that a call
+        where it is False raises at the first :meth:`sync` after that call,
+        and only there."""
         if self.mode == "eager":
+            if not self.read(ok)[0]:
+                raise ValueError(message)
             return
         tally = self._tally(self.faults, name, 1)
         self.messages[name] = message
@@ -667,16 +605,13 @@ class Segments:
         return "traced" if self.traced else ""
 
     def _counted(self, program, static):
-        """Run the program, keeping its launches outside the loops as a
+        """Run the program, recording its launches outside the loops as a
         call's (:attr:`static`) instead of counting them now."""
-        before = kernels.snapshot()
-        try:
+        with kernels.recording() as launches:
             out = program(self, *static)
-            if self.static is None:
-                self.static = kernels.delta(before)
-            return out
-        finally:
-            kernels.restore(before)
+        if self.static is None:
+            self.static = launches
+        return out
 
     def _capture(self, program, static):
         kernels.require_conditional_nodes()
@@ -720,9 +655,9 @@ class Segments:
         for i, name in enumerate(self.loops):
             r, _, total_r, total_f = vals[4 * i:4 * i + 4]
             done_r, done_f = self._synced.get(name, (0, 0))
-            kernels.add_counts(self.deltas.get(name + ".round", {}),
+            kernels.add_counts(self.bodies.get(name + ".round", {}),
                                total_r - done_r)
-            kernels.add_counts(self.deltas.get(name + ".refactor", {}),
+            kernels.add_counts(self.bodies.get(name + ".refactor", {}),
                                total_f - done_f)
             self._synced[name] = (total_r, total_f)
             rounds[name] = r
