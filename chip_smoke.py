@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels and the conditional graph nodes of the
+It builds the seven CUDA kernels and the conditional graph nodes of the
 compiled calls (``graph_cond.cu``) from ``tpu_pathopt_torch/csrc`` (nvcc
 for sm_90a, into ``tpu_pathopt_torch/_build``), then:
 
@@ -52,7 +52,9 @@ for sm_90a, into ``tpu_pathopt_torch/_build``), then:
    card at B 256 and B 1, bit for bit, timed beside it
    (``check_geometry``), and refused past its plan's limits; and K6 (the
    corridor's refit and lattice nodes, ``csrc/lattice.cu``) the same at B
-   256 and B 1 at 35 and 135 laterals (``check_lattice``);
+   256 and B 1 at 35 and 135 laterals (``check_lattice``); and K7 (the
+   prep stage, ``csrc/prep.cu``) the same at B 256 and B 1, and refused
+   past its plan's limits (``check_prep``);
 3. ``main_path``: ``solve_batch`` on the 256-scenario adversarial batch at
    the default ``PlannerConfig`` on ``cuda``, with every launch counter set
    to 0 just before and read just after; it fails unless every kernel
@@ -1322,6 +1324,81 @@ def check_lattice(gm, scs) -> dict:
         raise AssertionError("lattice: a plan past its limits launched")
     if kernels.launches != before:
         raise AssertionError("lattice: a refused plan counted a launch")
+    return rows
+
+
+# ------------------------------- K7, prep ------------------------------------
+
+# K7 replaces no Pallas kernel: the prep stage's B-spline fit and 1 m
+# segmentation (tpu_pathopt/bspline.py's fit_and_sample and
+# tpu_pathopt/smoothing/segment.py's segment_raw_reference, XLA code). It
+# is checked and timed at the main path's shapes, B 256 and B 1 (R 16, T
+# 256, P 64), beside the plain chain on the card.
+PREP_BATCHES = (256, 1)
+PREP_SOURCE = "tpu_pathopt_torch/csrc/prep.cu"
+PREP_REPLACES = ("none: tpu_pathopt/bspline.py (fit_and_sample), "
+                 "tpu_pathopt/smoothing/segment.py (segment_raw_reference)")
+
+
+def prep_work(B, R, cfg) -> tuple[int, int]:
+    """(bytes, float operations) of K7: the raw points read once, every
+    output written once; the length (about 20 a raw segment), the samples
+    (about 12 a de Boor step, at most 15 steps of degree 5), the arc length
+    and the fit (about 30 a sample) and the stations (about 40 each)."""
+    T, P = cfg.bspline_samples, cfg.n_segment_points
+    nbytes = B * (2 * R * 4 + 8) + B * (5 * P * 4 + 8 + 1)
+    flops = B * (20 * R + T * (12 * 15 + 30) + 40 * P)
+    return nbytes, flops
+
+
+def check_prep(scs, cfg) -> dict:
+    """K7 against its plain chain on the card at PREP_BATCHES, every
+    output bit for bit; each timed (``ms``: device time, the stream held
+    busy; ``call_ms``: as the host issues it) beside its bound, its chain
+    (the float64 arc-length sum and the two Thomas passes over the T
+    samples) and the plain chain's time. Returns the lines by shape."""
+    rows = {}
+    for b in PREP_BATCHES:
+        sub = tree_map(lambda a, b=b: a[:b], scs)
+        got = pipeline.prep_kernel(sub, cfg)
+        want = pipeline._prep_plain(sub, cfg)
+        torch.cuda.synchronize()
+        unequal = bit_unequal(got, want)
+        ms = cuda_time_ms(lambda: pipeline.prep_kernel(sub, cfg))
+        call_ms = cuda_time_ms(lambda: pipeline.prep_kernel(sub, cfg),
+                               hold=False)
+        plain_ms = cuda_time_ms(lambda: pipeline._prep_plain(sub, cfg),
+                                reps=SLOW_PLAIN_REPS, warmup=1)
+        R = sub.raw_x.shape[1]
+        nbytes, flops = prep_work(b, R, cfg)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        steps = 3 * cfg.bspline_samples
+        line = dict(phase="kernel", name="prep", shape=f"B={b}",
+                    held=True, bit_equal=not unequal, unequal=unequal,
+                    ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    plain_reps=SLOW_PLAIN_REPS, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    chain_steps=steps, ns_per_chain_step=ms * 1e6 / steps,
+                    plan=list(pipeline.prep_plan(R, cfg.bspline_samples,
+                                                 cfg.n_segment_points)))
+        emit(line)
+        if unequal:
+            raise AssertionError(f"prep [B={b}] differs from the plain "
+                                 f"chain: {unequal}")
+        rows[f"B={b}"] = line
+    # Past the plan's limits a CUDA input raises before any launch.
+    before = dict(kernels.launches)
+    try:
+        pipeline.prep_kernel(sub, dataclasses.replace(
+            cfg, bspline_samples=pipeline.PREP_MAX_SAMPLES + 1))
+    except ValueError as err:
+        emit(dict(phase="kernel", name="prep", shape="past_limit",
+                  raised=str(err)))
+    else:
+        raise AssertionError("prep: a plan past its limits launched")
+    if kernels.launches != before:
+        raise AssertionError("prep: a refused plan counted a launch")
     return rows
 
 
@@ -3146,6 +3223,7 @@ def main() -> int:
     check_no_fallback(captured)
     geometry_rows = check_geometry(gm, scs, cfg)
     lattice_rows = check_lattice(gm, scs)
+    prep_rows = check_prep(scs, cfg)
 
     eager = {}
     report, launches = drive_main_path(gm, scs, cfg, results=eager)
@@ -3205,6 +3283,12 @@ def main() -> int:
                      ms=g["ms"], plain_ms=g["plain_ms"],
                      bound_ms=g["bound_ms"], bound_by=g["bound_by"],
                      library_ms=None, by_shape=lattice_rows))
+    g = prep_rows[f"B={BATCH}"]
+    rows.append(dict(name="prep", route="cuda", source=PREP_SOURCE,
+                     replaces=PREP_REPLACES, launches=launches["prep"],
+                     max_abs_err=0.0, ms=g["ms"], plain_ms=g["plain_ms"],
+                     bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                     library_ms=None, by_shape=prep_rows))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

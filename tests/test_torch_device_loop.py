@@ -173,8 +173,9 @@ def test_a_failed_check_is_dropped_unread(drop):
 def counted(monkeypatch):
     """The kernels' wrappers count a launch on the CPU too, where they take
     their plain versions (K5: the geometry stage's plain chain; K6: the
-    corridor's refit and lattice nodes), under the key the card's launch
-    has (c = 1: no cluster at these sizes)."""
+    corridor's refit and lattice nodes; K7: the prep stage's plain chain),
+    under the key the card's launch has (c = 1: no cluster at these
+    sizes)."""
     def wrap(mod, attr, key):
         fn = getattr(mod, attr)
 
@@ -193,6 +194,8 @@ def counted(monkeypatch):
                         _count_geometry(pipeline._geometry_plain))
     monkeypatch.setattr(corridor, "refit_lattice_plain",
                         _count_lattice(corridor.refit_lattice_plain))
+    monkeypatch.setattr(pipeline, "_prep_plain",
+                        _count_prep(pipeline._prep_plain))
     kernels.reset_launches()
     yield
     kernels.reset_launches()
@@ -212,6 +215,16 @@ def _count_lattice(fn):
         out = fn(gm, x, y, n_valid, start_x, start_y, config)
         kernels.count_launch("lattice", f"L={config.dp_layers},"
                              f"K={config.dp_laterals}")
+        return out
+    return counting
+
+
+def _count_prep(fn):
+    def counting(scs, config):
+        out = fn(scs, config)
+        kernels.count_launch("prep", f"R={scs.raw_x.shape[1]},"
+                             f"T={config.bspline_samples},"
+                             f"P={config.n_segment_points}")
         return out
     return counting
 

@@ -985,7 +985,7 @@ def test_wrappers_count_only_kernel_launches():
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
     assert set(kernels.launches) == {"fused_factor", "fused_admm_round",
                                      "fused_structured_round", "dp_forward",
-                                     "geometry", "lattice"}
+                                     "geometry", "lattice", "prep"}
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():

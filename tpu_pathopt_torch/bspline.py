@@ -78,5 +78,9 @@ def fit_and_sample(x, y, n_valid, n_samples: int):
     seg = torch.hypot(torch.diff(xs, dim=-1), torch.diff(ys, dim=-1))
     samp_idx = torch.arange(n_samples, device=x.device)
     seg = torch.where(samp_idx[1:] < n_samp_valid.unsqueeze(-1), seg, 0.0)
-    s = torch.cat([torch.zeros_like(seg[:, :1]), torch.cumsum(seg, -1)], -1)
+    # Summed in float64 and rounded once to float32, on every device: the
+    # CPU's float32 cumsum sums in float64 already, the GPU's in float32 in
+    # its own order (splines.refit does the same).
+    s = torch.cumsum(seg, -1, dtype=torch.float64).to(seg.dtype)
+    s = torch.cat([torch.zeros_like(seg[:, :1]), s], -1)
     return xs, ys, s, n_samp_valid

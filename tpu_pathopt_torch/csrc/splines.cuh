@@ -1,9 +1,9 @@
-// Device functions K5 (geometry.cu) and K6 (lattice.cu) share: the natural
-// cubic spline of a route as a table in shared memory, its evaluation
-// (splines.evaluate, eval_xy_fused), its refit from a polyline
-// (splines.refit), the closest-point projection (splines.project: the grid
-// pre-scan, then Newton) and the ESDF's bilinear read
-// (maps.obstacle_distance).
+// Device functions K5 (geometry.cu), K6 (lattice.cu) and K7 (prep.cu)
+// share: the natural cubic spline of a route as a table in shared memory,
+// its evaluation (splines.evaluate, eval_xy_fused), its fit on given knots
+// (splines.fit_xy) and its refit from a polyline (splines.refit), the
+// closest-point projection (splines.project: the grid pre-scan, then
+// Newton) and the ESDF's bilinear read (maps.obstacle_distance).
 //
 // Numerics: bit for bit the plain chain on the card. Every float32
 // operation is one correctly rounded operation in the chain's order (the
@@ -264,36 +264,19 @@ __device__ int block_argmin(float v, int i, float* red_v, int* red_i,
   return *out;
 }
 
-// splines.refit of the polyline in columns 1 (x) and 5 (y) of the table's
-// n rows, nv of them valid (the CTA's threads have written them and passed
-// a barrier): the segments, their arc length summed in float64 and rounded
-// once to float32 (thread 0) into column 0, the natural-BC Thomas sweep of x
-// and y (splines.fit_natural, splines._thomas: threads 0 and 1), the cubic
-// coefficients (one segment a thread). `work` holds 7 n floats. Every
-// thread of the CTA calls it; on return the table is complete for all of
-// them. Returns whether the knots are non-decreasing.
+// The knots of column 0 from the n - 1 segments h (float32; the CTA's
+// threads have written them and passed a barrier): 0, then their running
+// sum taken in float64 in index order and each rounded once to float32, as
+// torch.cumsum(seg, -1, dtype=torch.float64).to(torch.float32) (thread 0;
+// the caller waits at a barrier before reading them).
 //
-// The float64 sum is exact, so its order does not matter: every segment is
-// at least 1e-6 (above 2^-20, so a multiple of 2^-43) and a route's length
-// below 1024 m (2^10), which 53 bits hold. Past 1024 m the sums round and
-// the arc length may differ from the plain cumsum's by one float32 ulp.
-__device__ bool refit(float* tab, int n, long long nv, float* work) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float* h = work;       // segments, then knot intervals
-  float* slx = h + n;    // slopes of x and y
-  float* sly = slx + n;
-  float* cpx = sly + n;  // Thomas: c', d' (then sigma)
-  float* dpx = cpx + n;
-  float* cpy = dpx + n;
-  float* dpy = cpy + n;
-  for (int j = tid; j < n - 1; j += nt) {
-    const float* r = tab + kRow * j;
-    const float seg =
-        hypotf(f_sub(r[kRow + 1], r[1]), f_sub(r[kRow + 5], r[5]));
-    h[j] = j <= nv - 2 ? nanmax(seg, kSegFloor) : 1.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
+// The float64 sum is exact, so its order (the GPU's scan) does not matter
+// where every segment is 0 or at least 1e-6 (above 2^-20, so a multiple of
+// 2^-43) and the total below 1024 m (2^10), which 53 bits hold. Past that
+// the sums round and a knot may differ from the plain cumsum's by one
+// float32 ulp.
+__device__ void arc_length(float* tab, int n, const float* h) {
+  if (threadIdx.x == 0) {
     double sum = 0.0;
     tab[0] = 0.f;
     for (int j = 0; j < n - 1; ++j) {
@@ -301,7 +284,25 @@ __device__ bool refit(float* tab, int n, long long nv, float* work) {
       tab[kRow * (j + 1)] = __double2float_rn(sum);
     }
   }
-  __syncthreads();
+}
+
+// splines.fit_xy of the curves in columns 1 (x) and 5 (y) of the table's n
+// rows on the knots of column 0, nv of them valid (the CTA's threads have
+// written them and passed a barrier): the knot intervals and slopes, the
+// natural-BC Thomas sweep of x and y (splines.fit_natural,
+// splines._thomas: threads 0 and 1), the cubic coefficients (one segment a
+// thread). `work` holds 7 n floats. Every thread of the CTA calls it; on
+// return the table is complete for all of them. Returns whether the knots
+// are non-decreasing.
+__device__ bool fit_knots(float* tab, int n, long long nv, float* work) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* h = work;       // knot intervals
+  float* slx = h + n;    // slopes of x and y
+  float* sly = slx + n;
+  float* cpx = sly + n;  // Thomas: c', d' (then sigma)
+  float* dpx = cpx + n;
+  float* cpy = dpx + n;
+  float* dpy = cpy + n;
   int unsorted = 0;
   for (int k = tid; k < n - 1; k += nt) {
     const float* r = tab + kRow * k;
@@ -368,6 +369,25 @@ __device__ bool refit(float* tab, int n, long long nv, float* work) {
   }
   __syncthreads();
   return !unsorted;
+}
+
+// splines.refit of the polyline in columns 1 (x) and 5 (y) of the table's
+// n rows, nv of them valid (the CTA's threads have written them and passed
+// a barrier): the segments (at least 1e-6, 1 past the valid points), their
+// arc length into column 0 (arc_length), then fit_knots. `work` holds 7 n
+// floats. Every thread of the CTA calls it. Returns whether the knots are
+// non-decreasing.
+__device__ bool refit(float* tab, int n, long long nv, float* work) {
+  for (int j = threadIdx.x; j < n - 1; j += blockDim.x) {
+    const float* r = tab + kRow * j;
+    const float seg =
+        hypotf(f_sub(r[kRow + 1], r[1]), f_sub(r[kRow + 5], r[5]));
+    work[j] = j <= nv - 2 ? nanmax(seg, kSegFloor) : 1.f;
+  }
+  __syncthreads();
+  arc_length(tab, n, work);
+  __syncthreads();
+  return fit_knots(tab, n, nv, work);
 }
 
 // splines.project's grid pre-scan for (tx, ty): the first least squared

@@ -15,7 +15,9 @@ K3 also the knots and the launch plan's cluster size, e.g.
 ``fused_admm_round[nb=6,N=512,c=2]``; for K4 the laterals and the cluster
 size, ``dp_forward[K=135,c=1]``; for K5 the corridor's layers and
 the knots, ``geometry[M=32,N=128]``; for K6 the layers and the laterals,
-``lattice[L=32,K=35]``), so a run can show that the main path
+``lattice[L=32,K=35]``; for K7 the raw points, the B-spline samples
+and the segment points, ``prep[R=16,T=256,P=64]``), so a run can show
+that the main path
 went through each kernel at each of its shapes and plans. A key names the
 kernel, its shape and its plan, never the data. A captured CUDA
 graph launches its kernels at every replay without the wrappers running,
@@ -30,8 +32,11 @@ stage, which the JAX package leaves to XLA, as one launch
 (``pipeline.geometry_kernel``, its arguments :class:`GeometryArgs`).
 Nor is ``lattice.cu`` (K6): the DP corridor's refit and lattice nodes, also
 XLA code in the JAX package, as one launch (``corridor.lattice_kernel`` and
-``refit_lattice_kernel``, its arguments :class:`LatticeArgs`). The two share
-their spline, projection and ESDF device functions (``splines.cuh``).
+``refit_lattice_kernel``, its arguments :class:`LatticeArgs`). Nor is
+``prep.cu`` (K7): the prep stage's B-spline fit and 1 m segmentation, as
+one launch (``pipeline.prep_kernel``, its arguments :class:`PrepArgs`).
+The three share their spline, projection and ESDF device functions
+(``splines.cuh``).
 ``graph_cond.cu`` is no TPU kernel's port: it adds the conditional graph
 nodes of a compiled call's device-side loops (``torchutil.Segments``), and
 the stamps and node counts of a traced compiled call (``profiling``).
@@ -56,7 +61,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_factor.cu", "fused_admm_round.cu",
            "fused_structured_round.cu", "dp_forward.cu", "geometry.cu",
-           "lattice.cu", "graph_cond.cu")
+           "lattice.cu", "prep.cu", "graph_cond.cu")
 HEADERS = ("common.cuh", "btri_sweep.cuh", "splines.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -64,7 +69,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Kernel name -> launches since the last reset.
 launches = {"fused_factor": 0, "fused_admm_round": 0,
             "fused_structured_round": 0, "dp_forward": 0, "geometry": 0,
-            "lattice": 0}
+            "lattice": 0, "prep": 0}
 # "name[shape]" (e.g. "fused_factor[nb=9]") -> launches since the last reset.
 shape_launches: dict = {}
 # Filled by build(): the commands, seconds, library path and nvcc output.
@@ -233,6 +238,7 @@ def _load():
     L.pathopt_dp_resident.argtypes = [i] * 6 + [p]
     L.pathopt_geometry.argtypes = [ctypes.POINTER(GeometryArgs), i, i, p]
     L.pathopt_lattice.argtypes = [ctypes.POINTER(LatticeArgs), i, i, p]
+    L.pathopt_prep.argtypes = [ctypes.POINTER(PrepArgs), i, i, p]
     u64 = ctypes.c_ulonglong
     L.pathopt_graph_versions.argtypes = [p, p]
     L.pathopt_cond_handle.argtypes = [p, ctypes.c_uint, i, p]
@@ -247,6 +253,7 @@ def _load():
     for fn in (L.pathopt_fused_factor, L.pathopt_fused_admm_round,
                L.pathopt_fused_structured_round, L.pathopt_dp_forward,
                L.pathopt_dp_resident, L.pathopt_geometry, L.pathopt_lattice,
+               L.pathopt_prep,
                L.pathopt_graph_versions, L.pathopt_cond_handle,
                L.pathopt_cond_node, L.pathopt_capture_to,
                L.pathopt_capture_end, L.pathopt_set_condition,
@@ -296,6 +303,16 @@ class LatticeArgs(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "row_c", "col_c", "inv_res", "half_x", "half_y", "extend",
             "long_ds", "lat_ds", "inv_lat_ds", "lat_range", "threshold")])
+
+
+class PrepArgs(ctypes.Structure):
+    """``csrc/prep.cu``'s ``PrepArgs``, field for field: K7's device
+    pointers, then its shapes."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "raw_x", "raw_y", "n_raw", "ok_input", "out", "n_valid")]
+        + [(name, ctypes.c_int) for name in ("batch", "R", "T", "P")])
 
 
 def check(err: int, name: str):

@@ -108,6 +108,16 @@ class PathResult:
 # the eager path only reads the QP rounds' flags.
 
 def _prep(scs: Scenario, config: PlannerConfig):
+    """The prep stage: K7 (:func:`prep_kernel`) on CUDA tensors, the plain
+    chain (:func:`_prep_plain`) on CPU tensors."""
+    if kernels.kernel_device(scs.raw_x) is None:
+        return _prep_plain(scs, config)
+    return prep_kernel(scs, config)
+
+
+def _prep_plain(scs: Scenario, config: PlannerConfig):
+    """The prep stage as PyTorch tensor code, K7's plain version:
+    (ok_input, x, y, s, angle, k, n_valid)."""
     ok_input = scs.n_raw >= 4
     xb, yb, sb, nb = bspline.fit_and_sample(scs.raw_x, scs.raw_y, scs.n_raw,
                                             config.bspline_samples)
@@ -115,9 +125,83 @@ def _prep(scs: Scenario, config: PlannerConfig):
                                                config.n_segment_points)
 
 
+# K7's launch plan (csrc/prep.cu checks the same limits and formula). At
+# 128 raw segments PyTorch's CUDA sum, whose order K7 follows, changes it.
+PREP_MAX_RAW = 128
+PREP_MAX_SAMPLES = 1024
+PREP_MAX_POINTS = 1024
+PREP_MAX_THREADS = 512
+
+
+class PrepPlan(NamedTuple):
+    threads: int   # a CTA's, one CTA a scenario
+    smem: int      # dynamic shared memory bytes
+
+
+def prep_plan(R: int, T: int, P: int) -> PrepPlan:
+    """K7's launch plan for R raw points, T B-spline samples and P segment
+    points: max(T, P) threads rounded up to a warp, at most
+    PREP_MAX_THREADS (one sample, then one station, a thread); 4 (16 T +
+    2 R) bytes of shared memory (the samples' spline table and the fit's
+    sweeps, the raw points; at the limits 66,560 bytes, within a block's
+    227 KB). Raises ValueError past the limits."""
+    for what, v, lo, hi in (("raw points", R, 2, PREP_MAX_RAW),
+                            ("B-spline samples", T, 2, PREP_MAX_SAMPLES),
+                            ("segment points", P, 1, PREP_MAX_POINTS)):
+        if not lo <= v <= hi:
+            raise ValueError(f"prep: {v} {what}, the kernel takes "
+                             f"{lo} to {hi}")
+    threads = min(PREP_MAX_THREADS, -(-max(T, P) // 32) * 32)
+    return PrepPlan(threads, 4 * (16 * T + 2 * R))
+
+
+def prep_inputs(scs: Scenario, config: PlannerConfig, device) -> tuple:
+    """(plan, inputs): K7's plan (:func:`prep_plan`) and its input tensors
+    in the order of ``kernels.PrepArgs`` (raw_x, raw_y (B, R) float32,
+    n_raw (B,) int64), each made contiguous (a copy where it is not) and
+    checked to be of its dtype and shape on ``device``; raises ValueError
+    otherwise or past the plan's limits."""
+    B, R = scs.raw_x.shape
+    plan = prep_plan(R, config.bspline_samples, config.n_segment_points)
+    want = (("raw_x", scs.raw_x, (B, R), torch.float32),
+            ("raw_y", scs.raw_y, (B, R), torch.float32),
+            ("n_raw", scs.n_raw, (B,), torch.int64))
+    inputs = []
+    for name, t, shape, dtype in want:
+        t = t.contiguous()
+        kernels.expect(name, t, shape, dtype, torch.device(device))
+        inputs.append(t)
+    return plan, inputs
+
+
+def prep_kernel(scs: Scenario, config: PlannerConfig):
+    """:func:`_prep_plain` as one launch of K7 (``csrc/prep.cu``) on the
+    current stream, on :func:`prep_plan`'s plan: the same outputs, bit for
+    bit on the card. CPU tensors, and inputs that :func:`prep_inputs`
+    refuses, raise ValueError before any launch."""
+    dev = kernels.kernel_device(scs.raw_x)
+    if dev is None:
+        raise ValueError("prep_kernel: CPU tensors take _prep_plain")
+    plan, inputs = prep_inputs(scs, config, dev)
+    B, R = scs.raw_x.shape
+    T, P = config.bspline_samples, config.n_segment_points
+    ok_input = torch.empty((B,), dtype=torch.bool, device=dev)
+    out = torch.empty((5, B, P), dtype=torch.float32, device=dev)
+    n_valid = torch.empty((B,), dtype=torch.int64, device=dev)
+    args = kernels.PrepArgs(
+        *(kernels.ptr(t) for t in inputs + [ok_input, out, n_valid]),
+        B, R, T, P)
+    kernels.check(kernels.lib().pathopt_prep(
+        ctypes.byref(args), plan.threads, plan.smem,
+        kernels.stream_ptr(dev)), "prep")
+    kernels.count_launch("prep", f"R={R},T={T},P={P}")
+    x, y, s, angle, k = out
+    return ok_input, x, y, s, angle, k, n_valid
+
+
 def stage_prep(scs: Scenario, config: PlannerConfig, drv=EAGER):
     """B-spline fit (reference_path_smoother.cpp:490-524) + 1 m
-    segmentation (:47-85)."""
+    segmentation (:47-85); on the card one K7 launch."""
     return drv("prep", functools.partial(_prep, config=config), scs)
 
 
